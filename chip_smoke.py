@@ -1,0 +1,321 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's IVF Quick-ADC search on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+
+It builds the hand-written CUDA kernels from qadc_tpu_torch/csrc/ with nvcc
+(into build/kernels/), makes the seeded bench-geometry index of
+qadc_tpu_torch/eval/synth.py on the card (IVF-256, 16x4 PQ, dim 128, 3906
+codes per partition, about 1M codes), and then:
+
+  1. kernel phases: each kernel against its plain PyTorch version on the
+     card, at the shapes the search gives it (M1 at b=128's routed groups,
+     M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs);
+  2. search phases: ivf.search_qadc at b=1 (direct path), b=32 and b=128
+     (grouped path), r=100, ma=24, keep=0.005, with the launch counts reset
+     just before and read just after; every kernel must have launched. Each
+     result is held against the same search through the plain versions and
+     against an exact float64 ADC oracle over the same probed partitions;
+  3. timing with CUDA events (warm-up, then the median and p90 of 100 runs): us/query
+     per batch, and each kernel beside its plain version; torch.profiler's
+     CUDA events give device time (each kernel alone; the device's busy and
+     idle share of a search).
+
+Any failed check raises, so the script exits non-zero and prints no result.
+The line before the last is the card's name and power limit as nvidia-smi
+reports them, and the last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+R, MA, KEEP = 100, 24, 0.005
+BATCHES = (1, 32, 128)
+# Timed runs per measurement: 100 leave ten samples beyond the p90.
+REPS, WARMUP = 100, 3
+# M2/M3 float sums: rtol 1e-6, atol 1e-5 * max|plain| (same sum order, but
+# the compiler may round differently); M1 int32: exact.
+RTOL, ATOL_REL = 1e-6, 1e-5
+SEARCH_RTOL = 1e-5       # distances of a search vs its plain twin / the oracle
+MIN_ORACLE_RECALL = 0.95  # grouped path: oracle top-1 found in the top-100
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn) -> tuple[float, float]:
+    """(median, p90) milliseconds of one call over REPS runs, by CUDA events
+    around each call, after a warm-up."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), statistics.quantiles(times, n=10)[-1]
+
+
+def device_ms(torch, fn, kernel: str | None = None) -> float:
+    """Device milliseconds of one call from torch.profiler's CUDA events:
+    the named kernel's time, or all of the call's kernels and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    check(total > 0, f"profiler saw no device time ({kernel or 'all'})")
+    return total / REPS / 1e3
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def float_err(torch, got, want, what: str) -> float:
+    """Max abs error of got vs want; raises outside RTOL / ATOL_REL."""
+    atol = ATOL_REL * float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    repo = Path(__file__).resolve().parent
+    if not (repo / "qadc_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(repo))
+
+    import numpy as np
+
+    from qadc_tpu_torch.convert import ivf_index_from_arrays
+    from qadc_tpu_torch.core.layout import code_view
+    from qadc_tpu_torch.core.packing import unpack_codes
+    from qadc_tpu_torch.eval.recall import recall_at_r
+    from qadc_tpu_torch.eval.synth import bench_ivf_arrays
+    from qadc_tpu_torch.index import ivf
+    from qadc_tpu_torch.index.routing import route_queries
+    from qadc_tpu_torch.kernels import build, lut_scan
+
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(device)}", flush=True)
+
+    t0 = time.perf_counter()
+    lib_path, log = build.build()
+    build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}", flush=True)
+    for line in log.splitlines():
+        if "ptxas info" in line or "spill" in line:
+            print(f"  {line.strip()}")
+
+    rng = np.random.default_rng(0)
+    arrays, manifest = bench_ivf_arrays(rng)
+    index = ivf_index_from_arrays(arrays, manifest, device)
+    queries = {b: torch.from_numpy(rng.normal(size=(b, 128)).astype(np.float32)).to(device)
+               for b in BATCHES}
+    print(f"index: P={index.part_count} part_pad={index.part_pad} n={index.n} "
+          f"codes={index.codes.numel() / 1e6:.1f} MB", flush=True)
+    prefix_pad = min(max(1, int(index.max_part_size * KEEP)), index.part_pad)
+
+    # ---- 1. kernel phases at the search's shapes --------------------------
+    kernels = {}
+
+    def kernel_phase(name, cu_name, source, replaces, kernel_fn, plain_fn, compare):
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = compare(got, want)
+        # ms: device time (the kernel alone; all of the plain version's
+        # kernels); call_ms: CUDA events around one call, host work included.
+        ms, plain_ms = device_ms(torch, kernel_fn, cu_name), device_ms(torch, plain_fn)
+        call_ms, plain_call_ms = time_ms(torch, kernel_fn)[0], time_ms(torch, plain_fn)[0]
+        kernels[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "call_ms": call_ms,
+                         "plain_call_ms": plain_call_ms}
+        print(f"kernel {name}: max_abs_err={err:.3g} device ms={ms:.4f} (plain {plain_ms:.4f}) "
+              f"call ms={call_ms:.4f} (plain {plain_call_ms:.4f}) [{card}]", flush=True)
+
+    qb = queries[128]
+    parts, tables, qtables, (tlo, thi) = ivf._quantized_tables(
+        index, qb, R, MA, KEEP, prefix_pad, lut_scan.DISPATCH)
+    qa = qb.shape[0] * MA
+    routed = route_queries(parts, index.part_count, 128)
+    g_sz = index.part_sizes[routed.group_part.long()]
+    rows = torch.where(routed.group_valid, (g_sz + index.cpr - 1) // index.cpr, 0)
+    m1_args = (index.codes, qtables.reshape(qa, 16, 16), routed.group_part,
+               routed.slot_pairs(), rows.to(torch.int32))
+
+    def exact_int(got, want):
+        check(torch.equal(got, want), "grouped_scan differs from its plain version")
+        return 0.0
+
+    kernel_phase("grouped_scan", "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu",
+                 "qadc_tpu/kernels/lut_scan.py:857",
+                 lambda: lut_scan.grouped_scan(*m1_args),
+                 lambda: lut_scan.grouped_scan_plain(*m1_args), exact_int)
+
+    rpp = index.codes.shape[1]
+    ppr = -(-prefix_pad // index.cpr)
+    flat_rows = index.codes.reshape(-1, 128)
+    gen = torch.Generator(device=device).manual_seed(0)
+    a_rerank = qb.shape[0] * R                     # Q * wq selected windows
+    m2_shapes = {
+        "keep-prefix": (
+            (parts.reshape(qa, 1) * rpp + torch.arange(ppr, device=device,
+                                                       dtype=torch.int32)).reshape(-1),
+            torch.arange(qa, device=device, dtype=torch.int32).repeat_interleave(ppr)),
+        "rerank": (
+            torch.randint(0, flat_rows.shape[0], (a_rerank,), generator=gen,
+                          device=device, dtype=torch.int32),
+            torch.randint(0, qa, (a_rerank,), generator=gen, device=device,
+                          dtype=torch.int32)),
+    }
+    for shape_name, (row_ids, pair_ids) in m2_shapes.items():
+        m2_args = (flat_rows, row_ids, pair_ids, tlo, thi)
+        kernel_phase(f"rows_adc[{shape_name} A={row_ids.shape[0]}]", "rows_adc_kernel",
+                     "qadc_tpu_torch/csrc/rows_adc.cu", "qadc_tpu/kernels/lut_scan.py:1148",
+                     lambda: lut_scan.rows_adc(*m2_args),
+                     lambda: lut_scan.rows_adc_plain(*m2_args),
+                     lambda got, want: float_err(torch, got, want, "rows_adc"))
+
+    p1, rot1 = ivf.assign_queries(index, queries[1], MA)
+    t1lo, t1hi = ivf.tile_tables_rows(
+        ivf.adc_tables(rot1, index.pq.centroids).reshape(MA, 16, 16))
+    pflat = p1.reshape(MA)
+    m3_args = (index.codes, pflat, t1lo, t1hi, index.part_sizes[pflat.long()])
+
+    def direct_err(got, want):
+        (gd, gm), (wd, wm) = got, want
+        big = wd == lut_scan.MASK_BIG
+        check(torch.equal(gd == lut_scan.MASK_BIG, big), "direct_scan MASK_BIG placement")
+        err = float_err(torch, torch.where(big, 0.0, gd), torch.where(big, 0.0, wd),
+                        "direct_scan distances")
+        return max(err, float_err(torch, gm, wm, "direct_scan tile minima"))
+
+    kernel_phase("direct_scan", "direct_scan_kernel", "qadc_tpu_torch/csrc/rows_adc.cu",
+                 "qadc_tpu/kernels/lut_scan.py:1206",
+                 lambda: lut_scan.direct_scan(*m3_args),
+                 lambda: lut_scan.direct_scan_plain(*m3_args), direct_err)
+
+    # ---- 2. the main path, through the kernels -----------------------------
+    def search(b, kernels_=lut_scan.DISPATCH):
+        return ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP, kernels=kernels_)
+
+    torch.cuda.synchronize()
+    lut_scan.reset_launch_counts()
+    results = {b: search(b) for b in BATCHES}
+    torch.cuda.synchronize()
+    launches = dict(lut_scan.launches)
+    print(f"main path launches: {launches}", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was not launched by the main path")
+
+    for b in BATCHES:
+        d, lab = results[b]
+        check(d.shape == (b, R) and lab.shape == (b, R), f"b={b}: result shape")
+        check(bool(torch.isfinite(d).all()), f"b={b}: non-finite distances")
+        check(bool((d[:, 1:] >= d[:, :-1]).all()), f"b={b}: distances not ascending")
+        pd, pl = search(b, lut_scan.PLAIN)
+        torch.testing.assert_close(d, pd, rtol=SEARCH_RTOL, atol=0.0,
+                                   msg=lambda m: f"b={b}: kernels vs plain: {m}")
+        same_top1 = bool(torch.equal(lab[:, 0], pl[:, 0]))
+        overlap = float(np.mean([len(set(x) & set(y)) for x, y in
+                                 zip(lab.tolist(), pl.tolist())]))
+        check(same_top1 and overlap >= 98, f"b={b}: labels vs plain (overlap {overlap})")
+
+        od, ol = oracle(torch, index, queries[b], code_view, unpack_codes, ivf)
+        if b == 1:  # direct path: exact float ADC, so its top-r is the oracle's
+            torch.testing.assert_close(d.double(), od, rtol=SEARCH_RTOL, atol=0.0,
+                                       msg=lambda m: f"b=1: direct vs oracle: {m}")
+            err = float((d.double() - od).abs().max())
+            print(f"search b=1: vs plain overlap={overlap} | vs oracle max_abs_err={err:.3g}",
+                  flush=True)
+        else:
+            rec = recall_at_r(lab.cpu().numpy(), ol[:, :1].cpu().numpy())
+            print(f"search b={b}: vs plain overlap={overlap} | oracle top-1 recall@{R}={rec}",
+                  flush=True)
+            check(rec >= MIN_ORACLE_RECALL, f"b={b}: oracle recall {rec}")
+
+    # ---- 3. end-to-end timing ----------------------------------------------
+    for b in BATCHES:
+        ms, p90 = time_ms(torch, lambda: search(b))
+        busy = device_ms(torch, lambda: search(b))
+        print(f"e2e b={b}: {ms * 1e3 / b:.2f} us/query median, {p90 * 1e3 / b:.2f} p90 "
+              f"(n={REPS}; {ms:.4f} ms/batch; device busy {busy:.4f} ms/batch, idle share "
+              f"{1 - busy / ms:.3f}) [{card}]", flush=True)
+
+    line = {"kernels": []}
+    for name, k in kernels.items():
+        base = name.split("[")[0]
+        line["kernels"].append({**k, "launches": launches[base]})
+    print(json.dumps(line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def oracle(torch, index, queries, code_view, unpack_codes, ivf):
+    """Exact float64 ADC over every real code of the probed partitions.
+
+    The probes are the search's own (ivf.assign_queries); tables, sums and
+    the ranking are recomputed here in float64 with plain torch. The bench
+    index is plain PQ, so residuals need no rotation.
+    Returns (dists (Q, R) float64, labels (Q, R) int64).
+    """
+    parts, _ = ivf.assign_queries(index, queries, MA)
+    parts = parts.long()
+    m, _, dsq = index.pq.centroids.shape
+    cents = index.pq.centroids.double()
+    codes = code_view(index.codes, index.pq.code_size)
+    out_d, out_l = [], []
+    for s in range(0, queries.shape[0], 8):
+        p = parts[s:s + 8]
+        res = queries[s:s + 8].double()[:, None, :] - index.coarse_centroids.double()[p]
+        tab = ((res.reshape(*p.shape, m, 1, dsq) - cents) ** 2).sum(-1)  # (q, ma, M, 16)
+        idx = unpack_codes(codes[p]).long()                               # (q, ma, pad, M)
+        d = torch.gather(tab[:, :, None].expand(*idx.shape, 16), -1, idx[..., None])
+        d = d[..., 0].sum(-1)                                             # (q, ma, pad)
+        col = torch.arange(index.part_pad, device=d.device)
+        d = torch.where(col < index.part_sizes[p][..., None], d, torch.inf)
+        lab = index.labels[p].long()
+        sv, order = torch.sort(d.reshape(d.shape[0], -1), dim=-1, stable=True)
+        out_d.append(sv[:, :R])
+        out_l.append(torch.gather(lab.reshape(d.shape[0], -1), 1, order[:, :R]))
+    return torch.cat(out_d), torch.cat(out_l)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

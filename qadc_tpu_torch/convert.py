@@ -1,0 +1,53 @@
+"""Carry an IVF index across from the JAX package's arrays.
+
+`ivf_index_from_arrays` takes exactly what qadc_tpu.io.checkpoint.save_index
+writes for an IVF index: its arrays (as numpy) and its manifest.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from qadc_tpu_torch.index.ivf import IVFIndex
+from qadc_tpu_torch.quantizers.opq import OPQQuantizer
+from qadc_tpu_torch.quantizers.pq import ProductQuantizer
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def ivf_index_from_arrays(arrays: Mapping[str, np.ndarray], meta: Mapping,
+                          device) -> IVFIndex:
+    """Build the port's IVFIndex on `device` from checkpoint arrays.
+
+    Args:
+      arrays: `codes` (P, rpp, 128) uint8, `labels` (P, part_pad) int32,
+        `part_sizes` (P,) int32, `coarse_centroids` (P, dim) float32,
+        `pq_centroids` (M, K, dsq) float32 and, for OPQ, `pq_rotation`.
+      meta: the checkpoint manifest: `n`, `max_part_size` and
+        `pq: {"sq_bits": ..}`.
+      device: where the index lives (a CUDA device runs the kernels).
+    """
+    sq_bits = int(meta.get("pq", {}).get("sq_bits", 4))
+    centroids = _tensor(arrays["pq_centroids"], torch.float32, device)
+    if "pq_rotation" in arrays:
+        pq = OPQQuantizer(centroids=centroids, sq_bits=sq_bits,
+                          rotation=_tensor(arrays["pq_rotation"], torch.float32, device))
+    else:
+        pq = ProductQuantizer(centroids=centroids, sq_bits=sq_bits)
+    codes = _tensor(arrays["codes"], torch.uint8, device)
+    if codes.dim() != 3 or codes.shape[2] != 128:
+        raise ValueError(f"codes must be (P, rpp, 128) row128 storage, got {tuple(codes.shape)}")
+    return IVFIndex(
+        pq=pq,
+        coarse_centroids=_tensor(arrays["coarse_centroids"], torch.float32, device),
+        codes=codes,
+        labels=_tensor(arrays["labels"], torch.int32, device),
+        part_sizes=_tensor(arrays["part_sizes"], torch.int32, device),
+        n=int(meta["n"]),
+        max_part_size=int(meta["max_part_size"]),
+    )

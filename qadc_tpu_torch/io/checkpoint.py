@@ -1,0 +1,31 @@
+"""Load an IVF checkpoint written by qadc_tpu.io.checkpoint.save_index
+(counterpart of qadc_tpu/io/checkpoint.py; loading only).
+
+The format is `arrays.npz` (one entry per field) plus `manifest.json`
+(type and static metadata), so an index built by the JAX package loads
+here unchanged.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from qadc_tpu_torch.convert import ivf_index_from_arrays
+from qadc_tpu_torch.index.ivf import IVFIndex
+
+FORMAT_VERSION = 1
+
+
+def load_index(path: str, device="cpu") -> IVFIndex:
+    """Load the IVF index saved in directory `path` onto `device`."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest["format"] != FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint format {manifest['format']}")
+    if manifest["type"] != "ivf":
+        raise ValueError(f"only IVF checkpoints load in the port, got {manifest['type']}")
+    with np.load(os.path.join(path, "arrays.npz")) as arrays:
+        return ivf_index_from_arrays(dict(arrays), manifest, device)

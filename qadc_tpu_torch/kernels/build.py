@@ -1,0 +1,90 @@
+"""Build the hand-written CUDA kernels at first use and bind them with ctypes.
+
+`nvcc` compiles every `qadc_tpu_torch/csrc/*.cu` for sm_90a into one shared
+library with a plain C interface, under `build/kernels/` at the root of the
+checkout. The library's name carries a hash of the sources and flags, so an
+edited source builds anew and an unchanged one is reused. Nothing is built
+when the package is imported: only the first launch on a CUDA tensor (or an
+explicit `build()`) runs the compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argument types; every pointer and the stream are c_void_p.
+SIGNATURES = {
+    # codes, qtables, group_part, slot_pair, group_rows, out,
+    # gcap, group_size, rpp, cb, stream
+    "qadc_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # codes, row_ids, pair_ids, tlo, thi, out, a_count, cb, stream
+    "qadc_rows_adc": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, stream
+    "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libqadc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels unless an up-to-date library exists.
+
+    Returns (library path, compiler output; empty when nothing was built).
+    """
+    lib = _library_path()
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,109 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Skipped where there is no CUDA card (the kernels run only there). On a card
+run it without the JAX test configuration:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: M1 (int32 sums) bit-exact; M2/M3 rtol 1e-6, atol 1e-5 * max:
+the plain versions sum in the kernels' order, but the card may contract or
+round differently. MASK_BIG placement and trim sentinels exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qadc_tpu_torch.convert import ivf_index_from_arrays
+from qadc_tpu_torch.eval.synth import bench_ivf_arrays
+from qadc_tpu_torch.index import ivf
+from qadc_tpu_torch.index.routing import route_queries
+from qadc_tpu_torch.kernels import lut_scan
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want):
+    atol = 1e-5 * float(want.abs().max().clamp(min=1.0))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=atol)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_grouped_scan_matches_plain(cuda, m):
+    g = np.random.default_rng(m)
+    parts, rpp, q, ma = 6, 200, 9, 4                    # rpp spans a partial tile
+    codes = torch.from_numpy(g.integers(0, 256, (parts, rpp, 128), dtype=np.uint8))
+    qtables = torch.from_numpy(g.integers(0, 128, (q * ma, m, 16)).astype(np.int8))
+    pids = torch.from_numpy(g.integers(0, parts, (q, ma)).astype(np.int32))
+    sizes = torch.tensor([0, 1, 17, rpp * 128 // (m // 2), 900, 3000], dtype=torch.int32)
+    routed = route_queries(pids, parts, group_size=4)
+    cpr = 128 // (m // 2)
+    rows = torch.where(routed.group_valid, (sizes[routed.group_part.long()] + cpr - 1) // cpr, 0)
+    args = [codes, qtables, routed.group_part, routed.slot_pairs(), rows.to(torch.int32)]
+    want = lut_scan.grouped_scan_plain(*args)
+    before = lut_scan.launches["grouped_scan"]
+    got = lut_scan.grouped_scan(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert lut_scan.launches["grouped_scan"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+def test_rows_adc_matches_plain(cuda, cb):
+    g = np.random.default_rng(cb)
+    codes = torch.from_numpy(g.integers(0, 256, (300, 128), dtype=np.uint8))
+    rows = torch.from_numpy(g.integers(0, 300, 701).astype(np.int32))
+    pairs = torch.from_numpy(g.integers(0, 40, 701).astype(np.int32))
+    tlo = torch.from_numpy(g.normal(size=(40, 16 * cb)).astype(np.float32))
+    thi = torch.from_numpy(g.normal(size=(40, 16 * cb)).astype(np.float32))
+    args = [codes, rows, pairs, tlo, thi]
+    want = lut_scan.rows_adc_plain(*args)
+    got = lut_scan.rows_adc(*[a.to(cuda) for a in args])
+    _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+def test_direct_scan_matches_plain(cuda, cb):
+    g = np.random.default_rng(100 + cb)
+    parts, part_pad, qa = 5, 512, 7
+    codes = torch.from_numpy(
+        g.integers(0, 256, (parts, part_pad * cb // 128, 128), dtype=np.uint8))
+    pp = torch.from_numpy(g.integers(0, parts, qa).astype(np.int32))
+    tlo = torch.from_numpy(g.normal(size=(qa, 16 * cb)).astype(np.float32))
+    thi = torch.from_numpy(g.normal(size=(qa, 16 * cb)).astype(np.float32))
+    sizes = torch.tensor([0, 1, 31, 33, 500, 512, 256], dtype=torch.int32)
+    args = [codes, pp, tlo, thi, sizes]
+    want_d, want_m = lut_scan.direct_scan_plain(*args)
+    got_d, got_m = lut_scan.direct_scan(*[a.to(cuda) for a in args])
+    got_d, got_m = got_d.cpu(), got_m.cpu()
+    big = want_d == lut_scan.MASK_BIG
+    assert torch.equal(got_d == lut_scan.MASK_BIG, big)
+    _close(torch.where(big, 0.0, got_d), torch.where(big, 0.0, want_d))
+    _close(got_m, want_m)
+
+
+def test_wrappers_raise_on_bad_input(cuda):
+    codes = torch.zeros((2, 4, 128), dtype=torch.uint8, device=cuda)
+    tlo = torch.zeros((3, 128), dtype=torch.float32, device=cuda)
+    rows = torch.zeros(3, dtype=torch.int64, device=cuda)  # must be int32
+    with pytest.raises(TypeError):
+        lut_scan.rows_adc(codes.reshape(-1, 128), rows, rows.int(), tlo, tlo)
+    with pytest.raises(ValueError):  # tables on another device
+        lut_scan.rows_adc(codes.reshape(-1, 128), rows.int(), rows.int(), tlo.cpu(), tlo)
+
+
+def test_search_on_card_matches_plain(cuda):
+    arrays, meta = bench_ivf_arrays(np.random.default_rng(0), parts=16)
+    index = ivf_index_from_arrays(arrays, meta, cuda)
+    queries = np.random.default_rng(1).normal(size=(8, 128)).astype(np.float32)
+    for kw in (dict(direct=True), dict(direct=False, grouped=True)):
+        d, l = ivf.search_qadc(index, queries, r=50, ma=4, keep=0.005, **kw)
+        pd, pl = ivf.search_qadc(index, queries, r=50, ma=4, keep=0.005,
+                                 kernels=lut_scan.PLAIN, **kw)
+        _close(d.cpu(), pd.cpu())
+        assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])

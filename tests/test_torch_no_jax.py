@@ -1,0 +1,45 @@
+"""qadc_tpu_torch imports no JAX anywhere.
+
+An AST scan of every module: this image imports jax at interpreter start,
+so sys.modules cannot show whether the port needs it. Tolerance: exact.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+PORT = Path(__file__).resolve().parents[1] / "qadc_tpu_torch"
+MODULES = sorted(PORT.rglob("*.py"))
+FORBIDDEN = ("jax", "qadc_tpu")
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_has_the_mirrored_modules():
+    names = {str(p.relative_to(PORT)) for p in MODULES}
+    for rel in ("core/packing.py", "core/layout.py", "quantizers/pq.py",
+                "quantizers/opq.py", "index/ivf.py", "index/routing.py",
+                "io/checkpoint.py", "ops/knn.py", "ops/tables.py",
+                "ops/quantization.py", "ops/topk.py", "kernels/lut_scan.py",
+                "eval/recall.py", "eval/synth.py", "convert.py"):
+        assert rel in names, rel
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PORT)))
+def test_module_imports_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.relative_to(PORT)} imports {name}"
+
+
+def test_chip_smoke_imports_no_jax():
+    path = PORT.parent / "chip_smoke.py"
+    for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, name
