@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's IVF Quick-ADC search on one NVIDIA card.
+"""Smoke run of the PyTorch port's IVF searches on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 It builds the hand-written CUDA kernels from qadc_tpu_torch/csrc/ with nvcc
-(into build/kernels/), makes the seeded bench-geometry index of
-qadc_tpu_torch/eval/synth.py on the card (IVF-256, 16x4 PQ, dim 128, 3906
-codes per partition, about 1M codes), and then:
+(into build/kernels/, one compiler per source, in parallel), makes the
+seeded bench-geometry indexes of qadc_tpu_torch/eval/synth.py on the card
+(IVF-256, dim 128, 3906 codes per partition, about 1M codes: 16x4 PQ, 8x8
+PQ and 8x16 PQ), and then:
 
   1. kernel phases: each kernel against its plain PyTorch version on the
      card, at the shapes the search gives it (M1 at b=128's routed groups,
-     M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs);
-  2. search phases: ivf.search_qadc at b=1 (direct path), b=32 and b=128
-     (grouped path), r=100, ma=24, keep=0.005, with the launch counts reset
-     just before and read just after; every kernel must have launched. Each
-     result is held against the same search through the plain versions and
-     against an exact float64 ADC oracle over the same probed partitions;
+     M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs; M1
+     with float tables and grouped_scan8 at search_adc's b=32 groups on the
+     16x4 and 8x8 indexes);
+  2. search phases, each with the launch counts reset just before and read
+     just after, and every kernel of its path required to have launched:
+     ivf.search_qadc at b=1 (direct path), b=32 and b=128 (grouped path),
+     r=100, ma=24, keep=0.005; then ivf.search_adc at b=32, r=100, ma=24 on
+     the 4-, 8- and 16-bit indexes. Each result is held against the same
+     search through the plain versions and against an exact float64 ADC
+     oracle over the same probed partitions;
   3. timing with CUDA events (warm-up, then the median and p90 of 100 runs): us/query
      per batch, and each kernel beside its plain version; torch.profiler's
      CUDA events give device time (each kernel alone; the device's busy and
@@ -37,6 +42,7 @@ from pathlib import Path
 
 R, MA, KEEP = 100, 24, 0.005
 BATCHES = (1, 32, 128)
+ADC_BATCH = 32           # search_adc's phases (bench.py's adc4_b32 / adc8_b32)
 # Timed runs per measurement: 100 leave ten samples beyond the p90.
 REPS, WARMUP = 100, 3
 # M2/M3 float sums: rtol 1e-6, atol 1e-5 * max|plain| (same sum order, but
@@ -44,6 +50,15 @@ REPS, WARMUP = 100, 3
 RTOL, ATOL_REL = 1e-6, 1e-5
 SEARCH_RTOL = 1e-5       # distances of a search vs its plain twin / the oracle
 MIN_ORACLE_RECALL = 0.95  # grouped path: oracle top-1 found in the top-100
+ADC16_RTOL = 1e-4        # 16-bit: float32 GEMM distances vs the float64 oracle
+MIN_ADC8_OVERLAP = 95    # 8-bit: mean top-100 overlap with the oracle
+# The kernels each search path must launch (keys of lut_scan.launches).
+PATH_KERNELS = {
+    "qadc": ("grouped_scan", "rows_adc", "direct_scan"),
+    "adc4": ("grouped_scan_f32", "rows_adc"),
+    "adc8": ("grouped_scan8",),
+    "adc16": (),             # decode and a float32 GEMM: no kernel of its own
+}
 
 
 def card_line() -> str:
@@ -94,6 +109,13 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def inf_float_err(torch, got, want, what: str) -> float:
+    """float_err over the finite entries; +inf placement must be equal."""
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin), f"{what}: +inf placement")
+    return float_err(torch, got[fin], want[fin], what)
+
+
 def float_err(torch, got, want, what: str) -> float:
     """Max abs error of got vs want; raises outside RTOL / ATOL_REL."""
     atol = ATOL_REL * float(want.abs().max().clamp(min=1.0))
@@ -120,11 +142,12 @@ def main() -> int:
     from qadc_tpu_torch.core.layout import code_view
     from qadc_tpu_torch.core.packing import unpack_codes
     from qadc_tpu_torch.eval.recall import recall_at_r
-    from qadc_tpu_torch.eval.synth import bench_ivf_arrays
+    from qadc_tpu_torch.eval.synth import bench_ivf8_arrays, bench_ivf16_arrays, bench_ivf_arrays
     from qadc_tpu_torch.index import ivf
     from qadc_tpu_torch.index.routing import route_queries
     from qadc_tpu_torch.kernels import build, lut_scan
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -171,10 +194,8 @@ def main() -> int:
         index, qb, R, MA, KEEP, prefix_pad, lut_scan.DISPATCH)
     qa = qb.shape[0] * MA
     routed = route_queries(parts, index.part_count, 128)
-    g_sz = index.part_sizes[routed.group_part.long()]
-    rows = torch.where(routed.group_valid, (g_sz + index.cpr - 1) // index.cpr, 0)
     m1_args = (index.codes, qtables.reshape(qa, 16, 16), routed.group_part,
-               routed.slot_pairs(), rows.to(torch.int32))
+               routed.slot_pairs(), ivf._group_sizes(index, routed))
 
     def exact_int(got, want):
         check(torch.equal(got, want), "grouped_scan differs from its plain version")
@@ -228,6 +249,42 @@ def main() -> int:
                  lambda: lut_scan.direct_scan(*m3_args),
                  lambda: lut_scan.direct_scan_plain(*m3_args), direct_err)
 
+    # search_adc's kernels at its b=32 groups: M1 with float tables on the
+    # 16x4 index, grouped_scan8 with bf16 tables on the 8x8 index.
+    adc_indexes = {bits: ivf_index_from_arrays(*make(rng), device) for bits, make in
+                   ((8, bench_ivf8_arrays), (16, bench_ivf16_arrays))}
+    adc_indexes[4] = index
+    qadc = queries[ADC_BATCH]
+
+    def adc_group_args(ix):
+        p, rot = ivf.assign_queries(ix, qadc, MA)
+        t = ivf.adc_tables(rot, ix.pq.centroids).reshape(qadc.shape[0] * MA, ix.pq.sq_count, -1)
+        rt = route_queries(p, ix.part_count, 128)
+        return t, (rt.group_part, rt.slot_pairs(), ivf._group_sizes(ix, rt))
+
+    t4, groups4 = adc_group_args(index)
+    m1f_args = (index.codes, t4, *groups4)
+    kernel_phase("grouped_scan_f32", "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu",
+                 "qadc_tpu/kernels/lut_scan.py:857",
+                 lambda: lut_scan.grouped_scan(*m1f_args),
+                 lambda: lut_scan.grouped_scan_plain(*m1f_args),
+                 lambda got, want: inf_float_err(torch, got, want, "grouped_scan_f32"))
+
+    t8, groups8 = adc_group_args(adc_indexes[8])
+    m8_args = (adc_indexes[8].codes, t8.to(torch.bfloat16), *groups8)
+
+    def scan8_err(got, want):
+        (gv, gi), (wv, wi) = got, want
+        err = inf_float_err(torch, gv, wv, "grouped_scan8 minima")
+        same = gv == wv  # where the minima agree bit for bit, so must the argmin
+        check(torch.equal(gi[same], wi[same]), "grouped_scan8 argmin indices")
+        return err
+
+    kernel_phase("grouped_scan8", "grouped_scan8_kernel", "qadc_tpu_torch/csrc/grouped_scan8.cu",
+                 "qadc_tpu/kernels/lut_scan.py:1872",
+                 lambda: lut_scan.grouped_scan8(*m8_args),
+                 lambda: lut_scan.grouped_scan8_plain(*m8_args), scan8_err)
+
     # ---- 2. the main path, through the kernels -----------------------------
     def search(b, kernels_=lut_scan.DISPATCH):
         return ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP, kernels=kernels_)
@@ -236,10 +293,10 @@ def main() -> int:
     lut_scan.reset_launch_counts()
     results = {b: search(b) for b in BATCHES}
     torch.cuda.synchronize()
-    launches = dict(lut_scan.launches)
-    print(f"main path launches: {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched by the main path")
+    launches = {"qadc": dict(lut_scan.launches)}
+    print(f"main path launches: {launches['qadc']}", flush=True)
+    for name in PATH_KERNELS["qadc"]:
+        check(launches["qadc"][name] > 0, f"kernel {name} was not launched by the main path")
 
     for b in BATCHES:
         d, lab = results[b]
@@ -267,6 +324,52 @@ def main() -> int:
                   flush=True)
             check(rec >= MIN_ORACLE_RECALL, f"b={b}: oracle recall {rec}")
 
+    # ---- 2b. search_adc at 4, 8 and 16 bits, b=32 ---------------------------
+    def search_adc(bits, kernels_=lut_scan.DISPATCH):
+        return ivf.search_adc(adc_indexes[bits], qadc, r=R, ma=MA, kernels=kernels_)
+
+    for bits in (4, 8, 16):
+        path = f"adc{bits}"
+        torch.cuda.synchronize()
+        lut_scan.reset_launch_counts()
+        d, lab = search_adc(bits)
+        torch.cuda.synchronize()
+        launches[path] = dict(lut_scan.launches)
+        print(f"{path} launches: {launches[path]}", flush=True)
+        for name in PATH_KERNELS[path]:
+            check(launches[path][name] > 0, f"kernel {name} was not launched by {path}")
+        check(d.shape == (ADC_BATCH, R) and lab.shape == (ADC_BATCH, R), f"{path}: shape")
+        check(bool(torch.isfinite(d).all()), f"{path}: non-finite distances")
+        check(bool((d[:, 1:] >= d[:, :-1]).all()), f"{path}: distances not ascending")
+        pd, pl = search_adc(bits, lut_scan.PLAIN)
+        torch.testing.assert_close(d, pd, rtol=SEARCH_RTOL, atol=0.0,
+                                   msg=lambda m: f"{path}: kernels vs plain: {m}")
+        plain_overlap = float(np.mean([len(set(x) & set(y)) for x, y in
+                                       zip(lab.tolist(), pl.tolist())]))
+        check(bool(torch.equal(lab[:, 0], pl[:, 0])) and plain_overlap >= 98,
+              f"{path}: labels vs plain (overlap {plain_overlap})")
+        od, ol = oracle(torch, adc_indexes[bits], qadc, code_view, unpack_codes, ivf)
+        overlap = float(np.mean([len(set(x) & set(y)) for x, y in
+                                 zip(lab.tolist(), ol.tolist())]))
+        top1 = bool(torch.equal(lab[:, 0].long(), ol[:, 0]))
+        if bits == 4:  # M1's float minima are the rerank's distances: exact top-r
+            torch.testing.assert_close(d.double(), od, rtol=SEARCH_RTOL, atol=0.0,
+                                       msg=lambda m: f"{path} vs oracle: {m}")
+        elif bits == 8:
+            found = [a in set(x) for a, x in zip(ol[:, 0].tolist(), lab.tolist())]
+            check(all(found), f"{path}: oracle top-1 missing for {found.count(False)} queries")
+            check(overlap >= MIN_ADC8_OVERLAP, f"{path}: oracle overlap {overlap}")
+        else:
+            check(top1, f"{path}: top-1 differs from the oracle")
+            dn, ln, odn, oln = (t.cpu().numpy() for t in (d, lab, od, ol))
+            for qi in range(ADC_BATCH):  # distances of the labels both hold
+                _, i, j = np.intersect1d(ln[qi], oln[qi], return_indices=True)
+                np.testing.assert_allclose(dn[qi, i], odn[qi, j], rtol=ADC16_RTOL,
+                                           err_msg=f"{path} vs oracle, query {qi}")
+        err = float((d.double() - od).abs().max())
+        print(f"search {path} b={ADC_BATCH}: vs plain overlap={plain_overlap} | vs oracle "
+              f"top-1 equal={top1} overlap@{R}={overlap} max_abs_err={err:.3g}", flush=True)
+
     # ---- 3. end-to-end timing ----------------------------------------------
     for b in BATCHES:
         ms, p90 = time_ms(torch, lambda: search(b))
@@ -274,11 +377,20 @@ def main() -> int:
         print(f"e2e b={b}: {ms * 1e3 / b:.2f} us/query median, {p90 * 1e3 / b:.2f} p90 "
               f"(n={REPS}; {ms:.4f} ms/batch; device busy {busy:.4f} ms/batch, idle share "
               f"{1 - busy / ms:.3f}) [{card}]", flush=True)
+    for bits in (4, 8):
+        ms, p90 = time_ms(torch, lambda: search_adc(bits))
+        busy = device_ms(torch, lambda: search_adc(bits))
+        print(f"e2e adc{bits} b={ADC_BATCH}: {ms * 1e3 / ADC_BATCH:.2f} us/query median, "
+              f"{p90 * 1e3 / ADC_BATCH:.2f} p90 (n={REPS}; {ms:.4f} ms/batch; device busy "
+              f"{busy:.4f} ms/batch, idle share {1 - busy / ms:.3f}) [{card}]", flush=True)
 
+    # The launch count of each kernel phase comes from the path that runs it.
+    path_of = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8"}
     line = {"kernels": []}
     for name, k in kernels.items():
         base = name.split("[")[0]
-        line["kernels"].append({**k, "launches": launches[base]})
+        line["kernels"].append({**k, "launches": launches[path_of.get(base, "qadc")][base]})
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -288,25 +400,27 @@ def main() -> int:
 
 
 def oracle(torch, index, queries, code_view, unpack_codes, ivf):
-    """Exact float64 ADC over every real code of the probed partitions.
+    """Exact float64 ADC over every real code of the probed partitions, at 4,
+    8 or 16 bits.
 
     The probes are the search's own (ivf.assign_queries); tables, sums and
     the ranking are recomputed here in float64 with plain torch. The bench
-    index is plain PQ, so residuals need no rotation.
+    indexes are plain PQ, so residuals need no rotation.
     Returns (dists (Q, R) float64, labels (Q, R) int64).
     """
     parts, _ = ivf.assign_queries(index, queries, MA)
     parts = parts.long()
-    m, _, dsq = index.pq.centroids.shape
+    m, k, dsq = index.pq.centroids.shape
     cents = index.pq.centroids.double()
     codes = code_view(index.codes, index.pq.code_size)
     out_d, out_l = [], []
-    for s in range(0, queries.shape[0], 8):
-        p = parts[s:s + 8]
-        res = queries[s:s + 8].double()[:, None, :] - index.coarse_centroids.double()[p]
-        tab = ((res.reshape(*p.shape, m, 1, dsq) - cents) ** 2).sum(-1)  # (q, ma, M, 16)
-        idx = unpack_codes(codes[p]).long()                               # (q, ma, pad, M)
-        d = torch.gather(tab[:, :, None].expand(*idx.shape, 16), -1, idx[..., None])
+    step = 8 if k <= 256 else 1  # 16-bit tables: 1.6 GB of float64 a query
+    for s in range(0, queries.shape[0], step):
+        p = parts[s:s + step]
+        res = queries[s:s + step].double()[:, None, :] - index.coarse_centroids.double()[p]
+        tab = ((res.reshape(*p.shape, m, 1, dsq) - cents) ** 2).sum(-1)  # (q, ma, M, K)
+        idx = unpack_codes(codes[p], m, index.pq.sq_bits).long()          # (q, ma, pad, M)
+        d = torch.gather(tab[:, :, None].expand(*idx.shape, k), -1, idx[..., None])
         d = d[..., 0].sum(-1)                                             # (q, ma, pad)
         col = torch.arange(index.part_pad, device=d.device)
         d = torch.where(col < index.part_sizes[p][..., None], d, torch.inf)

@@ -11,6 +11,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from qadc_tpu_torch.core.layout import codes_per_row
+from qadc_tpu_torch.core.packing import SUPPORTED_BITS
 from qadc_tpu_torch.index.ivf import IVFIndex
 from qadc_tpu_torch.quantizers.opq import OPQQuantizer
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer
@@ -31,8 +33,17 @@ def ivf_index_from_arrays(arrays: Mapping[str, np.ndarray], meta: Mapping,
       meta: the checkpoint manifest: `n`, `max_part_size` and
         `pq: {"sq_bits": ..}`.
       device: where the index lives (a CUDA device runs the kernels).
+
+    Raises ValueError for a code geometry the port cannot search: sq_bits
+    outside SUPPORTED_BITS, codebooks of other than 2**sq_bits centroids,
+    codes that do not tile a 128-byte row, or labels that disagree with the
+    codes' padded partition size.
     """
     sq_bits = int(meta.get("pq", {}).get("sq_bits", 4))
+    m, k, _ = np.shape(arrays["pq_centroids"])
+    if sq_bits not in SUPPORTED_BITS or k != 1 << sq_bits or (m * sq_bits) % 8:
+        raise ValueError(f"cannot search {m}x{sq_bits}-bit PQ codes with {k} centroids")
+    cpr = codes_per_row(m * sq_bits // 8)
     centroids = _tensor(arrays["pq_centroids"], torch.float32, device)
     if "pq_rotation" in arrays:
         pq = OPQQuantizer(centroids=centroids, sq_bits=sq_bits,
@@ -42,6 +53,9 @@ def ivf_index_from_arrays(arrays: Mapping[str, np.ndarray], meta: Mapping,
     codes = _tensor(arrays["codes"], torch.uint8, device)
     if codes.dim() != 3 or codes.shape[2] != 128:
         raise ValueError(f"codes must be (P, rpp, 128) row128 storage, got {tuple(codes.shape)}")
+    if np.shape(arrays["labels"]) != (codes.shape[0], codes.shape[1] * cpr):
+        raise ValueError(f"labels {np.shape(arrays['labels'])} do not match codes "
+                         f"{tuple(codes.shape)} at {cpr} codes per row")
     return IVFIndex(
         pq=pq,
         coarse_centroids=_tensor(arrays["coarse_centroids"], torch.float32, device),

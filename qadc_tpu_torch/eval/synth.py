@@ -4,31 +4,53 @@
 (`_make_ivf`) times, at the reference's published SIFT1M IVF geometry
 (README.md:329-330): IVF-256, 16x4 PQ (8-byte codes, 16 per 128-byte row),
 dim 128, 3906 real codes per partition padded to 4096, about 1M codes.
-Codebooks, coarse centroids and codes are random, so the same seed gives the
-same index in both packages. The moment-matched generators of
-qadc_tpu/eval/synth.py feed trained indexes and wait for the port's build
-path.
+`bench_ivf8_arrays` draws bench.py's `_make_ivf8` (the same geometry at 8x8
+PQ), and `bench_ivf16_arrays` a 16-bit index of the same geometry (8x16 PQ,
+16-byte codes), which bench.py does not time. Codebooks, coarse centroids
+and codes are random, so the same seed gives the same index in both
+packages. The moment-matched generators of qadc_tpu/eval/synth.py feed
+trained indexes and wait for the port's build path.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+DIM, PART_PAD, PART_SIZE = 128, 4096, 3906
+
+
+def _ivf_arrays(rng, parts: int, m: int, sq_bits: int):
+    """Draw codebooks, coarse centroids and codes in bench.py's order."""
+    code_size = m * sq_bits // 8
+    arrays = {
+        "pq_centroids": rng.normal(size=(m, 1 << sq_bits, DIM // m)).astype(np.float32),
+        "coarse_centroids": rng.normal(size=(parts, DIM)).astype(np.float32),
+        "codes": rng.integers(0, 256, size=(parts, PART_PAD * code_size // 128, 128),
+                              dtype=np.uint8),
+        "labels": np.arange(parts * PART_PAD, dtype=np.int32).reshape(parts, PART_PAD),
+        "part_sizes": np.full((parts,), PART_SIZE, np.int32),
+    }
+    manifest = {"n": parts * PART_SIZE, "max_part_size": PART_SIZE,
+                "pq": {"sq_bits": sq_bits, "type": "pq"}}
+    return arrays, manifest
+
 
 def bench_ivf_arrays(rng: np.random.Generator, parts: int = 256):
-    """Checkpoint-shaped (arrays, manifest) of the bench IVF index.
+    """Checkpoint-shaped (arrays, manifest) of the bench IVF index (16x4).
 
     The draws are bench.py:_make_ivf's, in its order. `parts` below 256
     keeps every width and cuts only the partition count.
     """
-    dim, part_pad, m, size = 128, 4096, 16, 3906
-    arrays = {
-        "pq_centroids": rng.normal(size=(m, 16, dim // m)).astype(np.float32),
-        "coarse_centroids": rng.normal(size=(parts, dim)).astype(np.float32),
-        "codes": rng.integers(0, 256, size=(parts, part_pad // 16, 128), dtype=np.uint8),
-        "labels": np.arange(parts * part_pad, dtype=np.int32).reshape(parts, part_pad),
-        "part_sizes": np.full((parts,), size, np.int32),
-    }
-    manifest = {"n": parts * size, "max_part_size": size,
-                "pq": {"sq_bits": 4, "type": "pq"}}
-    return arrays, manifest
+    return _ivf_arrays(rng, parts, 16, 4)
+
+
+def bench_ivf8_arrays(rng: np.random.Generator, parts: int = 256):
+    """(arrays, manifest) of bench.py:_make_ivf8's index (8x8), its draws in
+    its order; `parts` cuts the partition count only."""
+    return _ivf_arrays(rng, parts, 8, 8)
+
+
+def bench_ivf16_arrays(rng: np.random.Generator, parts: int = 256):
+    """(arrays, manifest) of a 16-bit index at the bench geometry: 8x16 PQ
+    (65536 centroids a sub-quantizer, 16-byte codes, 8 per row)."""
+    return _ivf_arrays(rng, parts, 8, 16)

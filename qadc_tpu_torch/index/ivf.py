@@ -1,32 +1,54 @@
-"""IVF index and Quick-ADC search (counterpart of qadc_tpu/index/ivf.py).
+"""IVF index and search (counterpart of qadc_tpu/index/ivf.py).
 
 A query probes its `ma` nearest partitions, each with its own residual
 table. Partitions are a uniform (P, part_pad/cpr, 128) row128 array, padded
 by repeating each partition's last code (labels clamp to its last label).
 
-Search paths, as in the reference:
+Quick-ADC search (search_qadc, 4-bit codes, int8 tables), as in the
+reference:
   - direct (small batches): exact float ADC over every probed code
     (kernel M3, direct_scan), then an exact tile screen;
   - grouped: keep-prefix bound (M2, rows_adc) and int8 tables, pairs grouped
     by partition (routing), one int8 scan per group (M1, grouped_scan) to
     per-window minima, an exact window screen, and a float rerank of the
-    winning windows (M2 again).
-At window == cpr, the port's only window, window i of a partition is
-storage row i, so the kernels read row128 storage in place and no block
-size or slot permutation enters the results.
+    winning windows (M2 again);
+  - per probe (grouped=False): an int8 scan of each probed partition, top-2r
+    and a float rerank per probe, merged.
+Conventional ADC search (search_adc, 4/8/16-bit codes, float tables):
+  - 4-bit grouped: M1 with float tables, an exact screen of r windows and the
+    exact float rerank (M2): the screen's minima are the rerank's distances;
+  - 8-bit grouped: grouped_scan8 with bf16 tables, a screen of
+    r + max(16, r // 8) windows, every member of the winning windows
+    reranked with exact float32 table gathers;
+  - 16-bit grouped: each probed partition decoded once per group, distances
+    by a float32 GEMM, window minima, and a reconstruction rerank;
+  - per probe (grouped=False): exact ADC of every probed code, merged.
+At window == cpr (4-bit), window i of a partition is storage row i, so the
+kernels read row128 storage in place and no block size or slot permutation
+enters the results. Padded codes never enter a window minimum.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from qadc_tpu_torch.core.layout import codes_per_row
+from qadc_tpu_torch.core.layout import code_view, codes_per_row
+from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
+from qadc_tpu_torch.index.flat import decode_rows
 from qadc_tpu_torch.index.routing import group_capacity, route_queries
-from qadc_tpu_torch.kernels.lut_scan import DISPATCH, MASK_BIG, TILE, Kernels
+from qadc_tpu_torch.kernels.lut_scan import (
+    DISPATCH,
+    MASK_BIG,
+    SCAN8_SQ_COUNTS,
+    TILE,
+    Kernels,
+    scan8_windows,
+)
 from qadc_tpu_torch.ops.knn import exact_knn
 from qadc_tpu_torch.ops.quantization import (
     clamp_bound_to_max_distance,
@@ -34,7 +56,7 @@ from qadc_tpu_torch.ops.quantization import (
     quantize_tables_int8,
 )
 from qadc_tpu_torch.ops.tables import adc_tables
-from qadc_tpu_torch.ops.topk import exact_tile_screen, topk_smallest
+from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, topk_smallest
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer
 
 
@@ -168,23 +190,31 @@ def _default_scan_budget(device: torch.device) -> int:
     return SCAN_BUDGET_BYTES
 
 
-def _grouped_scan_bytes(q: int, ma: int, part_count: int, part_pad: int, cb: int,
-                        group_size: int, r: int, prefix_pad: int) -> int:
-    """Estimated transient device bytes of one grouped search call: the
-    reference's estimate (int32 window minima, per-pair gather, int8 table
-    slabs) plus the rerank's and the keep-prefix bound's row and table
-    reads, at the port's window (cpr)."""
+def _grouped_scan_bytes(
+    q: int, ma: int, part_count: int, part_pad: int, window: int,
+    group_size: int, lanes: int, val_bytes: int, slab_bytes: int,
+    n_streams: int, r: int = 0, cb: int = 0, prefix_pad: int = 0,
+) -> int:
+    """Estimated transient device bytes of one grouped scan call: the
+    reference's estimate (ivf.py:_grouped_scan_bytes) of the window-minimum
+    streams, their per-pair gather and the group table slabs, plus, with r
+    and cb set, the rerank's reads per selected window (a code row, a label
+    row, two compact tables, the distances) and, with prefix_pad, the
+    keep-prefix bound's."""
     qa = q * ma
-    cpr = 128 // cb
     gcap = group_capacity(q, ma, part_count, group_size)
-    c = part_pad // cpr
-    lanes = 16 * cb
-    total = gcap * group_size * c * 4 + qa * c * 4 + 2 * gcap * lanes * group_size
-    table_row = 2 * 16 * cb * 4
-    a = q * min(r, ma * c)                  # selected windows (wq = r)
-    total += a * (128 + cpr * 4 + table_row + cpr * 4)
-    pre = qa * (-(-prefix_pad // cpr))      # prefix rows scanned
-    total += pre * (128 + table_row + cpr * 4)
+    c = part_pad // window
+    total = (gcap * group_size * c * val_bytes * n_streams      # window minima
+             + qa * c * 4 * n_streams                           # per-pair gather
+             + 2 * gcap * lanes * group_size * slab_bytes)      # table slabs
+    if r and cb:
+        cpr = 128 // cb
+        table_row = 2 * 16 * cb * 4
+        a = q * min(r, ma * c)                  # selected windows (wq = r)
+        total += a * (128 + cpr * 4 + table_row + cpr * 4)
+        if prefix_pad:
+            pre = qa * (-(-prefix_pad // cpr))  # prefix rows scanned
+            total += pre * (128 + table_row + cpr * 4)
     return total
 
 
@@ -245,6 +275,31 @@ def _window_valid_mask(sz: torch.Tensor, c: int, cpr: int) -> torch.Tensor:
     return rows[None, :] * cpr < sz[:, None]
 
 
+def _group_sizes(index: IVFIndex, routed) -> torch.Tensor:
+    """(gcap,) int32 real code count of each group's partition (0 if unused)."""
+    g_sz = index.part_sizes[routed.group_part.long()]
+    return torch.where(routed.group_valid, g_sz, 0).to(torch.int32)
+
+
+def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int):
+    """Exact screen of each query's ma*C windows down to wq.
+
+    cv: (QA, C) window minima (inf = dead); parts: (Q, ma); sz: (QA,) sizes.
+    Returns (screen_v, sel_pair, sel_part, sel_wi, sel_sz), each (Q, wq):
+    the screened minima and each selected window's flat pair id (q*ma + a),
+    partition, window id and partition size.
+    """
+    q, ma = parts.shape
+    c = cv.shape[1]
+    screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq)
+    selq = selq.long()
+    sel_ai = selq // c
+    sel_pair = torch.arange(q, device=cv.device)[:, None] * ma + sel_ai
+    sel_part = torch.gather(parts.long(), 1, sel_ai)
+    sel_sz = torch.gather(sz.reshape(q, ma), 1, sel_ai)
+    return screen_v, sel_pair, sel_part, selq % c, sel_sz
+
+
 def _search_qadc_grouped_impl(
     index: IVFIndex, queries, r: int, ma: int, keep: float, prefix_pad: int,
     rerank: bool, group_size: int, kernels: Kernels, saturate: bool = False,
@@ -257,34 +312,24 @@ def _search_qadc_grouped_impl(
     q = queries.shape[0]
     m = index.pq.sq_count
     qa = q * ma
-    cpr = index.cpr
     c = index.codes.shape[1]                     # windows per partition = rows
 
     routed = route_queries(parts, index.part_count, group_size)
-    g_sz = index.part_sizes[routed.group_part.long()]
-    group_rows = torch.where(routed.group_valid, (g_sz + cpr - 1) // cpr, 0)
     vals = kernels.grouped_scan(
         index.codes, qtables.reshape(qa, m, 16), routed.group_part,
-        routed.slot_pairs(), group_rows.to(torch.int32),
+        routed.slot_pairs(), _group_sizes(index, routed),
     )                                            # (QA, C) int32
     cv = vals.to(torch.float32)
     if saturate:
         # Entries are >= 0, so the window min of saturating sums == min(., 127).
         cv = torch.clamp(cv, max=127.0)
     sz = index.part_sizes[parts.reshape(qa).long()]
-    cv = torch.where(_window_valid_mask(sz, c, cpr), cv, torch.inf)
+    cv = torch.where(_window_valid_mask(sz, c, index.cpr), cv, torch.inf)
 
     # Exact screen of the query's ma*C windows: with wq >= r windows by true
     # window minimum, every top-r code's window is provably kept.
-    wq = min(screen_windows or r, ma * c)
-    screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq)
-    selq = selq.long()
-    sel_ai = selq // c
-    sel_wi = selq % c
-    sel_pair = torch.arange(q, device=index.device)[:, None] * ma + sel_ai
-    sel_part = torch.gather(parts.long(), 1, sel_ai)
-    sel_sz = torch.gather(sz.reshape(q, ma), 1, sel_ai)
-
+    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(
+        cv, parts, sz, min(screen_windows or r, ma * c))
     tw_src = tables if rerank else qtables.to(torch.float32)
     return window_rerank(
         index, tw_src, screen_v, sel_part, sel_pair, sel_wi, sel_sz, r, kernels,
@@ -353,9 +398,10 @@ def search_qadc(
       quantized distance, as the reference does.
     grouped / direct: force a path. By default a CUDA index takes the direct
       path for small probed volumes (DIRECT_MAX_CODES, DIRECT_MAX_DENSITY)
-      with rerank on and saturate off, and the grouped path otherwise; a CPU
-      index always takes the grouped path (the JAX package's per-probe CPU
-      path is not ported). grouped=False without direct raises.
+      with rerank on and saturate off, and the grouped path otherwise (a CPU
+      index: always grouped) when the geometry allows (sq_count 16 or 32,
+      part_pad a multiple of 512). grouped=False, or another geometry, takes
+      the per-probe path (_search_qadc_impl), the JAX package's CPU path.
     saturate: reproduce the reference's saturating int8 sums (min(sum, 127)).
     scan_budget_bytes: memory governor budget (default: 35% of the card's
       memory, at least SCAN_BUDGET_BYTES); larger batches run in chunks.
@@ -393,22 +439,21 @@ def search_qadc(
         )
     if grouped is None:
         grouped = geometry_ok
-    if not grouped:
-        raise NotImplementedError(
-            "only the grouped and direct paths are ported (sq_count 16 or 32, "
-            "part_pad a multiple of 512)"
-        )
     prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
     prefix_pad = min(prefix_pad, index.part_pad)
+    if bound is not None:
+        bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
+    if not grouped:
+        return _search_qadc_impl(index, queries, r, ma, keep, prefix_pad, rerank,
+                                 kernels, saturate=saturate, bound=bound)
     chunk = _governed_query_chunk(
         lambda qc: _grouped_scan_bytes(
-            qc, ma, index.part_count, index.part_pad, index.pq.code_size,
-            group_size, r, prefix_pad,
+            qc, ma, index.part_count, index.part_pad, index.cpr, group_size,
+            lanes=16 * index.pq.code_size, val_bytes=4, slab_bytes=1, n_streams=1,
+            r=r, cb=index.pq.code_size, prefix_pad=prefix_pad,
         ),
         q, budget,
     )
-    if bound is not None:
-        bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
     return _run_query_chunks(
         lambda qs, bd: _search_qadc_grouped_impl(
             index, qs, r, ma, keep, prefix_pad, rerank, group_size, kernels,
@@ -416,3 +461,304 @@ def search_qadc(
         ),
         queries, chunk, bound,
     )
+
+
+# ------------------------------------------------------- per-probe paths
+
+
+def _table_sum(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(N, M, K) tables, (N, S, M) centroid ids -> (N, S) sums over m, in
+    the order m = 0..M-1 (in the tables' dtype)."""
+    acc = torch.zeros(idx.shape[:2], dtype=tab.dtype, device=tab.device)
+    for mm in range(idx.shape[-1]):
+        acc = acc + torch.gather(tab[:, mm], 1, idx[..., mm])
+    return acc
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Float32 matrix products in full float32 (no TF32) inside the block,
+    whatever the process-wide setting; the setting is restored after."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _search_qadc_impl(index: IVFIndex, queries, r: int, ma: int, keep: float,
+                      prefix_pad: int, rerank: bool, kernels: Kernels,
+                      saturate: bool = False, bound=None):
+    """Per-probe Quick-ADC search (the reference's CPU path): an int8 scan of
+    each probed partition, its top 2r (r without rerank) re-scored with the
+    float tables, merged into the running top-r."""
+    parts, tables, qtables, _ = _quantized_tables(
+        index, queries, r, ma, keep, prefix_pad, kernels, bound_override=bound)
+    q = queries.shape[0]
+    part_pad = index.part_pad
+    sizes = index.part_sizes[parts.long()]                   # (Q, ma)
+    pcodes = code_view(index.codes, index.pq.code_size)
+    rr = min(2 * r if rerank else r, part_pad)
+    col = torch.arange(part_pad, device=index.device)
+    best_v = torch.full((q, r), torch.inf, device=index.device)
+    best_l = torch.zeros((q, r), dtype=torch.int32, device=index.device)
+    for a in range(ma):
+        pids = parts[:, a].long()
+        idx = unpack_codes(pcodes[pids]).long()              # (Q, part_pad, M)
+        acc = _table_sum(qtables[:, a].to(torch.int32), idx)  # unsaturated int32
+        if saturate:
+            # Entries are >= 0, so the saturating sum == min(sum, 127).
+            acc = torch.clamp(acc, max=127)
+        d = torch.where(col < sizes[:, a:a + 1], acc.to(torch.float32), torch.inf)
+        top, rows = torch.sort(d, dim=-1, stable=True)       # ties: lower code
+        top, rows = top[:, :rr], rows[:, :rr]
+        cl = torch.gather(index.labels[pids], 1, rows)
+        if rerank:
+            cidx = torch.gather(idx, 1, rows[..., None].expand(-1, -1, idx.shape[-1]))
+            cv = torch.where(torch.isfinite(top), _table_sum(tables[:, a], cidx), torch.inf)
+        else:
+            cv = top
+        best_v, best_l = merge_topk(best_v, best_l, cv, cl, r)
+    return best_v, best_l
+
+
+def _search_adc_probe_impl(index: IVFIndex, queries, r: int, ma: int):
+    """Per-probe exact ADC search at 4, 8 or 16 bits (the reference's
+    _search_adc_jnp_impl): every code of each probed partition is scored and
+    merged into the running top-r. 16-bit codes are scored as the squared
+    distance to their reconstruction."""
+    parts, rot = assign_queries(index, queries, ma)
+    pq = index.pq
+    wide = pq.sq_bits == 16
+    if not wide:
+        tables = adc_tables(rot, pq.centroids)               # (Q, ma, M, K)
+    q = queries.shape[0]
+    part_pad = index.part_pad
+    sizes = index.part_sizes[parts.long()]
+    pcodes = code_view(index.codes, pq.code_size)
+    col = torch.arange(part_pad, device=index.device)
+    best_v = torch.full((q, r), torch.inf, device=index.device)
+    best_l = torch.zeros((q, r), dtype=torch.int32, device=index.device)
+    for a in range(ma):
+        pids = parts[:, a].long()
+        idx = unpack_codes(pcodes[pids], pq.sq_count, pq.sq_bits).long()
+        if wide:
+            dec = decode_rows(pq, idx)                       # (Q, part_pad, dim)
+            ra = rot[:, a]
+            with _full_f32_matmul():
+                cross = torch.bmm(dec, ra[:, :, None])[..., 0]
+            d = (ra * ra).sum(-1)[:, None] + (dec * dec).sum(-1) - 2.0 * cross
+        else:
+            d = _table_sum(tables[:, a], idx)
+        # Padded codes repeat the last one: masked, or they would flood.
+        d = torch.where(col < sizes[:, a:a + 1], d, torch.inf)
+        cv, cl = topk_smallest(d, index.labels[pids], min(r, part_pad))
+        best_v, best_l = merge_topk(best_v, best_l, cv, cl, r)
+    return best_v, best_l
+
+
+# ------------------------------------------------------- grouped ADC paths
+
+
+def _search_adc4_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
+                              group_size: int, kernels: Kernels):
+    """4-bit conventional ADC: M1 with float32 tables, an exact screen of r
+    windows and the exact float rerank of their codes (M2).
+
+    wq = r is lossless here: M1 sums each code in rows_adc's order, so a
+    window's minimum is bit for bit the rerank's distance of one of its real
+    codes, and the top-r codes lie in at most r windows, each of whose
+    minimum is at most the r-th distance.
+    """
+    parts, rot = assign_queries(index, queries, ma)
+    tables = adc_tables(rot, index.pq.centroids)             # (Q, ma, M, 16)
+    q = queries.shape[0]
+    m = index.pq.sq_count
+    qa = q * ma
+    c = index.codes.shape[1]                                 # windows = rows
+    routed = route_queries(parts, index.part_count, group_size)
+    cv = kernels.grouped_scan(
+        index.codes, tables.reshape(qa, m, 16), routed.group_part,
+        routed.slot_pairs(), _group_sizes(index, routed),
+    )                                                        # (QA, C) f32, inf trimmed
+    sz = index.part_sizes[parts.reshape(qa).long()]
+    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, min(r, ma * c))
+    return window_rerank(index, tables, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
+                         r, kernels)
+
+
+def _expand_windows(index: IVFIndex, screen_v, sel_part, sel_sz, first, stride: int,
+                    window: int):
+    """Every member of the selected windows: member k of a window is code
+    first + k*stride of its partition.
+
+    Returns (code ids (Q, wq*window) global, labels, alive mask): a member is
+    alive when it is a real code of a live (finite) window.
+    """
+    q, wq = screen_v.shape
+    local = first[..., None] + torch.arange(window, device=first.device) * stride
+    alive = (local < sel_sz[..., None]) & torch.isfinite(screen_v)[..., None]
+    cand = (sel_part[..., None] * index.part_pad + local).reshape(q, wq * window)
+    return cand, index.labels.reshape(-1)[cand], alive.reshape(q, wq * window)
+
+
+def _rank_candidates(fd, labels, alive, r: int):
+    """Top-r of the candidates by exact distance; padded to r with +inf."""
+    fd = torch.where(alive, fd, torch.inf)
+    if r > fd.shape[1]:  # tiny probed volume: pad to the (Q, r) contract
+        labels = F.pad(labels, (0, r - fd.shape[1]))
+        fd = F.pad(fd, (0, r - fd.shape[1]), value=torch.inf)
+    return topk_smallest(fd, labels, r)
+
+
+def _search_adc8_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
+                              group_size: int, kernels: Kernels):
+    """8-bit conventional ADC: grouped_scan8 with bf16 tables to window
+    minima, a screen of r + max(16, r // 8) windows (the margin absorbs the
+    bf16 rounding of the minima near the cut), and every member of the
+    winning windows reranked with exact float32 table gathers.
+
+    The kernel never lets a padded code into a minimum, so no argmin clamp
+    or dedup is needed (the reference's ivf.py:465-486).
+    """
+    parts, rot = assign_queries(index, queries, ma)
+    tables = adc_tables(rot, index.pq.centroids)             # (Q, ma, M, 256) f32
+    q = queries.shape[0]
+    m = index.pq.sq_count
+    qa = q * ma
+    cpr = index.cpr
+    window, cs = scan8_windows(m)
+    c = index.codes.shape[1] * cs
+    routed = route_queries(parts, index.part_count, group_size)
+    cv, _ = kernels.grouped_scan8(
+        index.codes, tables.reshape(qa, m, 256).to(torch.bfloat16), routed.group_part,
+        routed.slot_pairs(), _group_sizes(index, routed),
+    )                                                        # (QA, C), inf = no real code
+    sz = index.part_sizes[parts.reshape(qa).long()]
+    wq = min(r + max(16, r // 8), ma * c)
+    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, wq)
+    # Window r*cs + c0 holds codes r*cpr + c0 + k*cs.
+    first = sel_wi // cs * cpr + sel_wi % cs
+    cand, labels, alive = _expand_windows(index, screen_v, sel_part, sel_sz, first, cs,
+                                          window)
+    idx8 = gather_codes_row128(index.codes.reshape(-1, 128), cand, m).long()
+    # Exact float32 rerank: one element gather per (candidate, sub-quantizer)
+    # from the per-pair tables, summed over b = 0..m-1.
+    base = sel_pair.repeat_interleave(window, dim=1) * m     # (Q, wq*window)
+    flat = tables.reshape(-1)
+    fd = torch.zeros(cand.shape, dtype=torch.float32, device=cand.device)
+    for b in range(m):
+        fd = fd + flat[(base + b) * 256 + idx8[..., b]]
+    return _rank_candidates(fd, labels, alive, r)
+
+
+# 16-bit grouped path: windows of ADC16_WINDOW consecutive codes (the
+# reference's default), partitions decoded ADC16_GROUP_CHUNK groups at a time
+# (bounds the decoded codes and distances to a few tens of MB at bench size).
+ADC16_WINDOW = 8
+ADC16_GROUP_CHUNK = 32
+
+
+def _search_adc16_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
+                               group_size: int):
+    """16-bit conventional ADC: each probed partition decoded once per group,
+    distances to the group's queries by a float32 GEMM (no TF32), minima of
+    windows of consecutive codes over real codes only, a screen of
+    r + max(16, r // 8) windows, and every member of the winning windows
+    reranked by its squared distance to the reconstruction."""
+    window, group_chunk = ADC16_WINDOW, ADC16_GROUP_CHUNK
+    parts, rot = assign_queries(index, queries, ma)
+    pq = index.pq
+    q = queries.shape[0]
+    qa = q * ma
+    dim = rot.shape[-1]
+    part_pad = index.part_pad
+    if part_pad % window:
+        raise ValueError(f"part_pad {part_pad} is not a multiple of the window {window}")
+    c = part_pad // window
+    routed = route_queries(parts, index.part_count, group_size)
+    g = routed.group_size
+    rotq = rot.reshape(qa, dim)
+    qslab = rotq[routed.slot_pairs().clamp(min=0).long()]   # (gcap, G, dim)
+    g_sz = _group_sizes(index, routed)
+    pcodes = code_view(index.codes, pq.code_size)
+    col = torch.arange(part_pad, device=index.device)
+    mins = []
+    for s in range(0, routed.gcap, group_chunk):
+        gp = routed.group_part[s:s + group_chunk].long()
+        dec = decode_rows(pq, unpack_codes(pcodes[gp], pq.sq_count, 16))  # (ch, pad, dim)
+        qs = qslab[s:s + group_chunk]                                     # (ch, G, dim)
+        with _full_f32_matmul():
+            cross = torch.bmm(qs, dec.transpose(1, 2))                    # (ch, G, pad)
+        d = ((qs * qs).sum(-1)[..., None] + (dec * dec).sum(-1)[:, None, :]
+             - 2.0 * cross)
+        d = torch.where(col < g_sz[s:s + group_chunk, None, None], d, torch.inf)
+        mins.append(d.reshape(-1, g, c, window).amin(dim=-1))
+    slot = (routed.qa_group * g + routed.qa_slot).reshape(qa).long()
+    cv = torch.cat(mins).reshape(-1, c)[slot]                # (QA, C)
+    sz = index.part_sizes[parts.reshape(qa).long()]
+    wq = min(r + max(16, r // 8), ma * c)
+    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, wq)
+    cand, labels, alive = _expand_windows(index, screen_v, sel_part, sel_sz,
+                                          sel_wi * window, 1, window)
+    codes = gather_codes_row128(index.codes.reshape(-1, 128), cand, pq.code_size)
+    dec = decode_rows(pq, unpack_codes(codes, pq.sq_count, 16))  # (Q, wq*window, dim)
+    qvec = rotq[sel_pair.repeat_interleave(window, dim=1)]
+    fd = ((qvec - dec) ** 2).sum(-1)
+    return _rank_candidates(fd, labels, alive, r)
+
+
+def search_adc(
+    index: IVFIndex, queries, r: int = 100, ma: int = 1, grouped: bool | None = None,
+    group_size: int = 128, scan_budget_bytes: int | None = None,
+    kernels: Kernels = DISPATCH,
+):
+    """Conventional float ADC IVF search at 4, 8 or 16 bits (reference:
+    db_query.cpp; the JAX package's ivf.search_adc, less its TPU knobs).
+
+    grouped: the grouped paths (default when part_pad is a multiple of 512
+      and the geometry has a grouped path: 4-bit at sq_count 16 or 32, 8-bit
+      at sq_count in SCAN8_SQ_COUNTS, any 16-bit); False takes the
+      per-probe exact path. On a CPU index the grouped paths run the plain
+      versions of the kernels.
+    scan_budget_bytes: memory governor budget of the 4- and 8-bit grouped
+      paths (default: 35% of the card's memory, at least SCAN_BUDGET_BYTES);
+      larger batches run in chunks.
+    kernels: the kernel set (lut_scan.DISPATCH, or lut_scan.PLAIN).
+
+    Returns (dists (Q, r) float32, labels (Q, r) int32); +inf marks a slot
+    with no candidate.
+    """
+    dev = index.device
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    q = queries.shape[0]
+    # Probing more partitions than exist == probing all of them.
+    ma = min(ma, index.part_count)
+    bits, m = index.pq.sq_bits, index.pq.sq_count
+    has_grouped = ((bits == 4 and m in (16, 32)) or (bits == 8 and m in SCAN8_SQ_COUNTS)
+                   or bits == 16)
+    if grouped is None:
+        grouped = has_grouped and index.part_pad % 512 == 0
+    if not grouped:
+        return _search_adc_probe_impl(index, queries, r, ma)
+    if not has_grouped:
+        raise ValueError(f"no grouped path for {m}x{bits}-bit codes")
+    if bits == 16:
+        return _search_adc16_grouped_impl(index, queries, r, ma, group_size)
+    budget = _default_scan_budget(dev) if scan_budget_bytes is None else scan_budget_bytes
+    if bits == 4:
+        impl = _search_adc4_grouped_impl
+        bytes_kw = dict(window=index.cpr, lanes=8 * m, val_bytes=4, slab_bytes=4,
+                        n_streams=1, r=r, cb=index.pq.code_size)
+    else:
+        impl = _search_adc8_grouped_impl
+        bytes_kw = dict(window=scan8_windows(m)[0], lanes=256 * m, val_bytes=4,
+                        slab_bytes=2, n_streams=2)     # minima + argmin streams
+    chunk = _governed_query_chunk(
+        lambda qc: _grouped_scan_bytes(qc, ma, index.part_count, index.part_pad,
+                                       group_size=group_size, **bytes_kw),
+        q, budget,
+    )
+    return _run_query_chunks(
+        lambda qs, _: impl(index, qs, r, ma, group_size, kernels), queries, chunk)

@@ -5,9 +5,10 @@ run it without the JAX test configuration:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: M1 (int32 sums) bit-exact; M2/M3 rtol 1e-6, atol 1e-5 * max:
-the plain versions sum in the kernels' order, but the card may contract or
-round differently. MASK_BIG placement and trim sentinels exact.
+Tolerances: M1 (int32 sums) bit-exact; M1 with float tables, grouped_scan8,
+M2 and M3 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
+kernels' order, but the card may contract or round differently. MASK_BIG
+placement, trim sentinels, dead windows and argmin indices exact.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from qadc_tpu_torch.convert import ivf_index_from_arrays
-from qadc_tpu_torch.eval.synth import bench_ivf_arrays
+from qadc_tpu_torch.eval.synth import bench_ivf8_arrays, bench_ivf16_arrays, bench_ivf_arrays
 from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.kernels import lut_scan
@@ -33,24 +34,54 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=atol)
 
 
+def _groups(g, parts, rpp, cpr, q, ma, group_size):
+    """Routed groups over random probes of partitions of assorted sizes."""
+    pids = torch.from_numpy(g.integers(0, parts, (q, ma)).astype(np.int32))
+    sizes = torch.tensor([0, 1, 17, rpp * cpr, 900, 3000], dtype=torch.int32)[:parts]
+    routed = route_queries(pids, parts, group_size=group_size)
+    g_sz = torch.where(routed.group_valid, sizes[routed.group_part.long()], 0)
+    return [routed.group_part, routed.slot_pairs(), g_sz.to(torch.int32)]
+
+
 @pytest.mark.parametrize("m", [16, 32])
-def test_grouped_scan_matches_plain(cuda, m):
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("group_size", [4, 128])
+def test_grouped_scan_matches_plain(cuda, m, f32, group_size):
     g = np.random.default_rng(m)
     parts, rpp, q, ma = 6, 200, 9, 4                    # rpp spans a partial tile
     codes = torch.from_numpy(g.integers(0, 256, (parts, rpp, 128), dtype=np.uint8))
-    qtables = torch.from_numpy(g.integers(0, 128, (q * ma, m, 16)).astype(np.int8))
-    pids = torch.from_numpy(g.integers(0, parts, (q, ma)).astype(np.int32))
-    sizes = torch.tensor([0, 1, 17, rpp * 128 // (m // 2), 900, 3000], dtype=torch.int32)
-    routed = route_queries(pids, parts, group_size=4)
-    cpr = 128 // (m // 2)
-    rows = torch.where(routed.group_valid, (sizes[routed.group_part.long()] + cpr - 1) // cpr, 0)
-    args = [codes, qtables, routed.group_part, routed.slot_pairs(), rows.to(torch.int32)]
+    if f32:  # a float table of 32 sub-quantizers is 2 KB: G=128 runs in chunks
+        tables = torch.from_numpy(g.random((q * ma, m, 16)).astype(np.float32))
+    else:
+        tables = torch.from_numpy(g.integers(0, 128, (q * ma, m, 16)).astype(np.int8))
+    args = [codes, tables, *_groups(g, parts, rpp, 128 // (m // 2), q, ma, group_size)]
     want = lut_scan.grouped_scan_plain(*args)
-    before = lut_scan.launches["grouped_scan"]
+    key = "grouped_scan_f32" if f32 else "grouped_scan"
+    before = lut_scan.launches[key]
     got = lut_scan.grouped_scan(*[a.to(cuda) for a in args])
     torch.cuda.synchronize()
-    assert lut_scan.launches["grouped_scan"] == before + 1
+    assert lut_scan.launches[key] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16])
+@pytest.mark.parametrize("group_size", [4, 128])
+def test_grouped_scan8_matches_plain(cuda, m, group_size):
+    g = np.random.default_rng(200 + m)
+    parts, rpp, q, ma = 6, 200, 9, 4
+    codes = torch.from_numpy(g.integers(0, 256, (parts, rpp, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.random((q * ma, m, 256)).astype(np.float32)).to(torch.bfloat16)
+    args = [codes, tables, *_groups(g, parts, rpp, 128 // m, q, ma, group_size)]
+    want_v, want_i = lut_scan.grouped_scan8_plain(*args)
+    before = lut_scan.launches["grouped_scan8"]
+    got_v, got_i = lut_scan.grouped_scan8(*[a.to(cuda) for a in args])
+    torch.cuda.synchronize()
+    assert lut_scan.launches["grouped_scan8"] == before + 1
+    got_v, got_i = got_v.cpu(), got_i.cpu()
+    assert torch.equal(torch.isinf(got_v), torch.isinf(want_v))
+    fin = torch.isfinite(want_v)
+    _close(got_v[fin], want_v[fin])
+    assert torch.equal(got_i, want_i)
 
 
 @pytest.mark.parametrize("cb", [8, 16])
@@ -107,3 +138,16 @@ def test_search_on_card_matches_plain(cuda):
                                  kernels=lut_scan.PLAIN, **kw)
         _close(d.cpu(), pd.cpu())
         assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])
+
+
+@pytest.mark.parametrize("make", [bench_ivf_arrays, bench_ivf8_arrays, bench_ivf16_arrays])
+def test_search_adc_on_card_matches_plain(cuda, make):
+    arrays, meta = make(np.random.default_rng(0), parts=16)
+    index = ivf_index_from_arrays(arrays, meta, cuda)
+    queries = np.random.default_rng(1).normal(size=(8, 128)).astype(np.float32)
+    d, l = ivf.search_adc(index, queries, r=50, ma=4)
+    pd, pl = ivf.search_adc(index, queries, r=50, ma=4, kernels=lut_scan.PLAIN)
+    ed, el = ivf.search_adc(index, queries, r=50, ma=4, grouped=False)
+    _close(d.cpu(), pd.cpu())
+    assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])
+    assert torch.equal(l.cpu()[:, 0], el.cpu()[:, 0])

@@ -62,11 +62,9 @@ def _port_minima(tindex, parts, qtables):
     qa = q * ma
     cpr = tindex.cpr
     routed = route_queries(torch.from_numpy(parts), tindex.part_count, G)
-    g_sz = tindex.part_sizes[routed.group_part.long()]
-    rows = torch.where(routed.group_valid, (g_sz + cpr - 1) // cpr, 0).to(torch.int32)
     out = lut_scan.grouped_scan(
         tindex.codes, torch.from_numpy(qtables), routed.group_part,
-        routed.slot_pairs(), rows)
+        routed.slot_pairs(), ivf._group_sizes(tindex, routed))
     sz = tindex.part_sizes[torch.from_numpy(parts.reshape(qa)).long()]
     valid = ivf._window_valid_mask(sz, tindex.codes.shape[1], cpr)
     return np.where(valid.numpy(), out.numpy(), MASKED), valid.numpy()
@@ -105,9 +103,9 @@ def test_grouped_scan_trims_rows_past_size():
     jindex, parts, qtables = _case("tq")
     tindex = to_port(jindex)
     routed = route_queries(torch.from_numpy(parts), tindex.part_count, 4)
-    rows = torch.full((routed.gcap,), 3, dtype=torch.int32)
+    sizes = torch.full((routed.gcap,), 3 * tindex.cpr, dtype=torch.int32)  # 3 rows
     out = lut_scan.grouped_scan(tindex.codes, torch.from_numpy(qtables),
-                                routed.group_part, routed.slot_pairs(), rows)
+                                routed.group_part, routed.slot_pairs(), sizes)
     assert (out[:, 3:] == lut_scan.TRIM_SENTINEL).all()
     assert (out[:, :3] < lut_scan.TRIM_SENTINEL).all()
     assert (out[:, :3] <= 127 * qtables.shape[1]).all()

@@ -26,7 +26,7 @@ def test_port_has_the_mirrored_modules():
     names = {str(p.relative_to(PORT)) for p in MODULES}
     for rel in ("core/packing.py", "core/layout.py", "quantizers/pq.py",
                 "quantizers/opq.py", "index/ivf.py", "index/routing.py",
-                "io/checkpoint.py", "ops/knn.py", "ops/tables.py",
+                "index/flat.py", "io/checkpoint.py", "ops/knn.py", "ops/tables.py",
                 "ops/quantization.py", "ops/topk.py", "kernels/lut_scan.py",
                 "eval/recall.py", "eval/synth.py", "convert.py"):
         assert rel in names, rel

@@ -56,3 +56,33 @@ def test_row128_views_match_reference():
     back = layout.code_view(rows, cb).numpy()
     np.testing.assert_array_equal(
         back, np.stack([jlayout.from_row128(r, cb) for r in want]))
+
+
+@pytest.mark.parametrize("bits,m", [(8, 8), (8, 16), (16, 2), (16, 8)])
+def test_wide_pack_round_trip_matches_reference(bits, m):
+    idx = np.random.default_rng(bits + m).integers(0, 1 << bits, size=(4, 9, m)).astype(np.int32)
+    want = np.asarray(jpacking.pack_codes(idx, bits))
+    got = packing.pack_codes(torch.from_numpy(idx), bits)
+    assert got.dtype == torch.uint8 and got.shape[-1] == m * bits // 8
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = packing.unpack_codes(got, m, bits)
+    assert back.dtype == torch.int32
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jpacking.unpack_codes(want, m, bits)))
+    np.testing.assert_array_equal(back.numpy(), idx)
+    if bits == 16:  # little-endian uint16: [lo0, hi0, lo1, hi1, ...]
+        assert got[0, 0, 0] == idx[0, 0, 0] & 0xFF and got[0, 0, 1] == idx[0, 0, 0] >> 8
+
+
+def test_unpack_rejects_a_wrong_sq_count():
+    with pytest.raises(ValueError):
+        packing.unpack_codes(torch.zeros((2, 8), dtype=torch.uint8), 4, 8)
+
+
+@pytest.mark.parametrize("code_size", [4, 8, 16])
+def test_gather_codes_row128_matches_reference(code_size):
+    g = np.random.default_rng(code_size)
+    rows = g.integers(0, 256, size=(12, 128), dtype=np.uint8)
+    ids = g.integers(0, 12 * 128 // code_size, size=(3, 7)).astype(np.int32)
+    want = np.asarray(jpacking.gather_codes_row128(rows, ids, code_size))
+    got = packing.gather_codes_row128(torch.from_numpy(rows), torch.from_numpy(ids), code_size)
+    np.testing.assert_array_equal(got.numpy(), want)

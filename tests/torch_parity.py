@@ -11,7 +11,8 @@ runs on the CPU (Pallas kernels in interpret mode), the port on CPU tensors
   synthetic_index(): a numpy-made index in the manner of bench.py:_make_ivf
     (8 partitions, part_pad 2048, random sizes with one empty and one tiny
     partition) carrying tq planes, so the JAX grouped path runs
-    lut_scan_grouped_tq.
+    lut_scan_grouped_tq (lut_scan8_grouped_tq at 8 bits); other code widths
+    by m and sq_bits.
 """
 
 from __future__ import annotations
@@ -79,16 +80,18 @@ def trained_index():
 
 
 @functools.cache
-def synthetic_index(seed: int = 11):
-    """(jax index with planes, queries (16, 32)): the last query sits on the
-    tiny partition, so ma=1 probes fewer codes than r."""
+def synthetic_index(seed: int = 11, m: int = 16, sq_bits: int = 4):
+    """(jax index with planes where its geometry has them, queries (16, 32)):
+    the last query sits on the tiny partition, so ma=1 probes fewer codes
+    than r. m x sq_bits PQ, dim 32."""
     rng = np.random.default_rng(seed)
-    parts, part_pad, dim, m = 8, 2048, 32, 16
+    parts, part_pad, dim = 8, 2048, 32
+    code_size = m * sq_bits // 8
     sizes = rng.integers(1, part_pad + 1, size=parts).astype(np.int32)
     sizes[0] = part_pad
     sizes[EMPTY_PART] = 0
     sizes[TINY_PART] = TINY_SIZE
-    codes = rng.integers(0, 256, size=(parts, part_pad, m // 2), dtype=np.uint8)
+    codes = rng.integers(0, 256, size=(parts, part_pad, code_size), dtype=np.uint8)
     labels = rng.permutation(parts * part_pad).astype(np.int32).reshape(parts, part_pad)
     for p, s in enumerate(sizes):  # tail padding repeats the last code / label
         if s == 0:
@@ -99,13 +102,14 @@ def synthetic_index(seed: int = 11):
             labels[p, s:] = labels[p, s - 1]
     coarse = rng.normal(scale=3.0, size=(parts, dim)).astype(np.float32)
     pq = ProductQuantizer(
-        centroids=jnp.asarray(rng.normal(size=(m, 16, dim // m)).astype(np.float32)),
-        sq_bits=4,
+        centroids=jnp.asarray(
+            rng.normal(size=(m, 1 << sq_bits, dim // m)).astype(np.float32)),
+        sq_bits=sq_bits,
     )
     index = jivf.IVFIndex(
         pq=pq,
         coarse_centroids=jnp.asarray(coarse),
-        codes=jnp.asarray(codes.reshape(parts, part_pad // 16, 128)),
+        codes=jnp.asarray(codes.reshape(parts, part_pad * code_size // 128, 128)),
         labels=jnp.asarray(labels),
         part_sizes=jnp.asarray(sizes),
         n=int(sizes.sum()),
