@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's IVF searches on one NVIDIA card.
+"""Smoke run of the PyTorch port's IVF and flat searches on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
 It builds the hand-written CUDA kernels from qadc_tpu_torch/csrc/ with nvcc
 (into build/kernels/, one compiler per source, in parallel), makes the
-seeded bench-geometry indexes of qadc_tpu_torch/eval/synth.py on the card
-(IVF-256, dim 128, 3906 codes per partition, about 1M codes: 16x4 PQ, 8x8
-PQ and 8x16 PQ), and then:
+seeded indexes of qadc_tpu_torch/eval/synth.py on the card: the bench IVF
+geometry (IVF-256, dim 128, 3906 codes per partition, about 1M codes: 16x4
+PQ, 8x8 PQ and 8x16 PQ) and the reference's flat SIFT1M size (1M codes
+padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
 
   1. kernel phases: each kernel against its plain PyTorch version on the
      card, at the shapes the search gives it (M1 at b=128's routed groups,
      M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs; M1
      with float tables and grouped_scan8 at search_adc's b=32 groups on the
-     16x4 and 8x8 indexes);
+     16x4 and 8x8 indexes; flat_scan with int8 tables, with and without
+     argmin rows, and with float tables over the 1M flat 16x4 codes at
+     b=128, and flat_scan8 over the flat 8x8 codes at b=32);
   2. search phases, each with the launch counts reset just before and read
      just after, and every kernel of its path required to have launched:
      ivf.search_qadc at b=1 (direct path), b=32 and b=128 (grouped path),
-     r=100, ma=24, keep=0.005; then ivf.search_adc at b=32, r=100, ma=24 on
-     the 4-, 8- and 16-bit indexes. Each result is held against the same
-     search through the plain versions and against an exact float64 ADC
-     oracle over the same probed partitions;
+     r=100, ma=24, keep=0.005; ivf.search_adc at b=32, r=100, ma=24 on the
+     4-, 8- and 16-bit indexes; flat.search_qadc (keep=0.01) and
+     flat.search_adc 4-bit at b=128, flat.search_adc 8- and 16-bit at b=32,
+     r=100. Each result is held against the same search through the plain
+     versions and against an exact float64 ADC oracle over the same codes
+     (the probed partitions; every real flat code);
   3. timing with CUDA events (warm-up, then the median and p90 of 100 runs): us/query
      per batch, and each kernel beside its plain version; torch.profiler's
      CUDA events give device time (each kernel alone; the device's busy and
@@ -52,13 +57,24 @@ SEARCH_RTOL = 1e-5       # distances of a search vs its plain twin / the oracle
 MIN_ORACLE_RECALL = 0.95  # grouped path: oracle top-1 found in the top-100
 ADC16_RTOL = 1e-4        # 16-bit: float32 GEMM distances vs the float64 oracle
 MIN_ADC8_OVERLAP = 95    # 8-bit: mean top-100 overlap with the oracle
+FLAT_N, FLAT_KEEP = 1_000_000, 0.01
+# Batch of each flat search path: 128 is the JAX bench's kernel stage
+# (bench.py:_bench_kernel, 1M codes x 128 queries).
+FLAT_BATCH = {"flat_qadc": 128, "flat_adc4": 128, "flat_adc8": 32, "flat_adc16": 32}
 # The kernels each search path must launch (keys of lut_scan.launches).
 PATH_KERNELS = {
     "qadc": ("grouped_scan", "rows_adc", "direct_scan"),
     "adc4": ("grouped_scan_f32", "rows_adc"),
     "adc8": ("grouped_scan8",),
     "adc16": (),             # decode and a float32 GEMM: no kernel of its own
+    "flat_qadc": ("flat_scan", "rows_adc"),
+    "flat_adc4": ("flat_scan_f32", "rows_adc"),
+    "flat_adc8": ("flat_scan8",),
+    "flat_adc16": (),
 }
+# The path whose run gives a kernel phase its launch count (default: qadc).
+PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
+           "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8"}
 
 
 def card_line() -> str:
@@ -109,6 +125,11 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def overlap(a, b) -> float:
+    """Mean size of the intersection of the label rows of a and b."""
+    return sum(len(set(x) & set(y)) for x, y in zip(a.tolist(), b.tolist())) / len(a)
+
+
 def inf_float_err(torch, got, want, what: str) -> float:
     """float_err over the finite entries; +inf placement must be equal."""
     fin = torch.isfinite(want)
@@ -138,12 +159,13 @@ def main() -> int:
 
     import numpy as np
 
-    from qadc_tpu_torch.convert import ivf_index_from_arrays
+    from qadc_tpu_torch.convert import flat_index_from_arrays, ivf_index_from_arrays
     from qadc_tpu_torch.core.layout import code_view
     from qadc_tpu_torch.core.packing import unpack_codes
     from qadc_tpu_torch.eval.recall import recall_at_r
-    from qadc_tpu_torch.eval.synth import bench_ivf8_arrays, bench_ivf16_arrays, bench_ivf_arrays
-    from qadc_tpu_torch.index import ivf
+    from qadc_tpu_torch.eval.synth import (bench_flat_arrays, bench_ivf8_arrays,
+                                           bench_ivf16_arrays, bench_ivf_arrays)
+    from qadc_tpu_torch.index import flat, ivf
     from qadc_tpu_torch.index.routing import route_queries
     from qadc_tpu_torch.kernels import build, lut_scan
 
@@ -285,6 +307,50 @@ def main() -> int:
                  lambda: lut_scan.grouped_scan8(*m8_args),
                  lambda: lut_scan.grouped_scan8_plain(*m8_args), scan8_err)
 
+    # The flat scans over the 1M-code flat indexes, at their searches' shapes.
+    flat_indexes = {bits: flat_index_from_arrays(*bench_flat_arrays(rng, m, bits, FLAT_N), device)
+                    for m, bits in ((16, 4), (8, 8), (8, 16))}
+    fq = {b: torch.from_numpy(rng.normal(size=(b, 128)).astype(np.float32)).to(device)
+          for b in sorted(set(FLAT_BATCH.values()))}
+    fi4, fi8 = flat_indexes[4], flat_indexes[8]
+    print(f"flat indexes: n={fi4.n} n_pad={fi4.n_pad} codes={fi4.codes.numel() / 1e6:.1f} / "
+          f"{fi8.codes.numel() / 1e6:.1f} / {flat_indexes[16].codes.numel() / 1e6:.1f} MB",
+          flush=True)
+    _, fqt, _ = flat._quantized_tables(fi4, fq[128], R, FLAT_KEEP, lut_scan.DISPATCH)
+    ft4 = ivf.adc_tables(fq[128], fi4.pq.centroids)
+    ft8 = ivf.adc_tables(fq[32], fi8.pq.centroids).to(torch.bfloat16)
+
+    def flat_rows_exact(got, want):
+        check(torch.equal(got[0], want[0]), "flat_scan minima differ from its plain version")
+        check(got[1] is want[1] is None or torch.equal(got[1], want[1]),
+              "flat_scan argmin rows differ")
+        return 0.0
+
+    def argmin_err(what):
+        def err(got, want):
+            (gv, gi), (wv, wi) = got, want
+            e = inf_float_err(torch, gv, wv, f"{what} minima")
+            same = gv == wv  # where the minima agree bit for bit, so must the argmin
+            check(torch.equal(gi[same], wi[same]), f"{what} argmin indices")
+            return e
+        return err
+
+    for name, args, compare, replaces in (
+        ("flat_scan", (fi4.codes, fqt, fi4.n), flat_rows_exact, 522),
+        ("flat_scan[with_rows]", (fi4.codes, fqt, fi4.n, True), flat_rows_exact, 281),
+        ("flat_scan_f32", (fi4.codes, ft4, fi4.n),
+         lambda got, want: inf_float_err(torch, got[0], want[0], "flat_scan_f32"), 522),
+    ):
+        kernel_phase(name, "flat_scan_kernel", "qadc_tpu_torch/csrc/flat_scan.cu",
+                     f"qadc_tpu/kernels/lut_scan.py:{replaces}",
+                     lambda a=args: lut_scan.flat_scan(*a),
+                     lambda a=args: lut_scan.flat_scan_plain(*a), compare)
+    kernel_phase("flat_scan8", "flat_scan8_kernel", "qadc_tpu_torch/csrc/flat_scan8.cu",
+                 "qadc_tpu/kernels/lut_scan.py:1601",
+                 lambda: lut_scan.flat_scan8(fi8.codes, ft8, fi8.n),
+                 lambda: lut_scan.flat_scan8_plain(fi8.codes, ft8, fi8.n),
+                 argmin_err("flat_scan8"))
+
     # ---- 2. the main path, through the kernels -----------------------------
     def search(b, kernels_=lut_scan.DISPATCH):
         return ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP, kernels=kernels_)
@@ -307,89 +373,132 @@ def main() -> int:
         torch.testing.assert_close(d, pd, rtol=SEARCH_RTOL, atol=0.0,
                                    msg=lambda m: f"b={b}: kernels vs plain: {m}")
         same_top1 = bool(torch.equal(lab[:, 0], pl[:, 0]))
-        overlap = float(np.mean([len(set(x) & set(y)) for x, y in
-                                 zip(lab.tolist(), pl.tolist())]))
-        check(same_top1 and overlap >= 98, f"b={b}: labels vs plain (overlap {overlap})")
+        plain_overlap = overlap(lab, pl)
+        check(same_top1 and plain_overlap >= 98,
+              f"b={b}: labels vs plain (overlap {plain_overlap})")
 
         od, ol = oracle(torch, index, queries[b], code_view, unpack_codes, ivf)
         if b == 1:  # direct path: exact float ADC, so its top-r is the oracle's
             torch.testing.assert_close(d.double(), od, rtol=SEARCH_RTOL, atol=0.0,
                                        msg=lambda m: f"b=1: direct vs oracle: {m}")
             err = float((d.double() - od).abs().max())
-            print(f"search b=1: vs plain overlap={overlap} | vs oracle max_abs_err={err:.3g}",
-                  flush=True)
+            print(f"search b=1: vs plain overlap={plain_overlap} | vs oracle "
+                  f"max_abs_err={err:.3g}", flush=True)
         else:
             rec = recall_at_r(lab.cpu().numpy(), ol[:, :1].cpu().numpy())
-            print(f"search b={b}: vs plain overlap={overlap} | oracle top-1 recall@{R}={rec}",
-                  flush=True)
+            print(f"search b={b}: vs plain overlap={plain_overlap} | oracle top-1 "
+                  f"recall@{R}={rec}", flush=True)
             check(rec >= MIN_ORACLE_RECALL, f"b={b}: oracle recall {rec}")
 
     # ---- 2b. search_adc at 4, 8 and 16 bits, b=32 ---------------------------
-    def search_adc(bits, kernels_=lut_scan.DISPATCH):
-        return ivf.search_adc(adc_indexes[bits], qadc, r=R, ma=MA, kernels=kernels_)
-
-    for bits in (4, 8, 16):
-        path = f"adc{bits}"
+    def drive(path, fn):
+        """One run of a search path with the launch counts reset just before
+        and read just after; every kernel of the path must have launched."""
         torch.cuda.synchronize()
         lut_scan.reset_launch_counts()
-        d, lab = search_adc(bits)
+        out = fn()
         torch.cuda.synchronize()
         launches[path] = dict(lut_scan.launches)
         print(f"{path} launches: {launches[path]}", flush=True)
         for name in PATH_KERNELS[path]:
             check(launches[path][name] > 0, f"kernel {name} was not launched by {path}")
-        check(d.shape == (ADC_BATCH, R) and lab.shape == (ADC_BATCH, R), f"{path}: shape")
+        return out
+
+    def check_vs_plain(path, b, got, plain):
+        (d, lab), (pd, pl) = got, plain
+        check(d.shape == (b, R) and lab.shape == (b, R), f"{path}: shape")
         check(bool(torch.isfinite(d).all()), f"{path}: non-finite distances")
         check(bool((d[:, 1:] >= d[:, :-1]).all()), f"{path}: distances not ascending")
-        pd, pl = search_adc(bits, lut_scan.PLAIN)
         torch.testing.assert_close(d, pd, rtol=SEARCH_RTOL, atol=0.0,
                                    msg=lambda m: f"{path}: kernels vs plain: {m}")
-        plain_overlap = float(np.mean([len(set(x) & set(y)) for x, y in
-                                       zip(lab.tolist(), pl.tolist())]))
+        plain_overlap = overlap(lab, pl)
         check(bool(torch.equal(lab[:, 0], pl[:, 0])) and plain_overlap >= 98,
               f"{path}: labels vs plain (overlap {plain_overlap})")
-        od, ol = oracle(torch, adc_indexes[bits], qadc, code_view, unpack_codes, ivf)
-        overlap = float(np.mean([len(set(x) & set(y)) for x, y in
-                                 zip(lab.tolist(), ol.tolist())]))
+        return plain_overlap
+
+    def check_vs_oracle(path, bits, got, want):
+        """The adc checks against the float64 oracle; returns (top-1 equal,
+        overlap@R). 4-bit: exact; 8-bit: top-1 kept and mean overlap >=
+        MIN_ADC8_OVERLAP; 16-bit: top-1 equal and shared labels' distances."""
+        (d, lab), (od, ol) = got, want
+        ov = overlap(lab, ol)
         top1 = bool(torch.equal(lab[:, 0].long(), ol[:, 0]))
-        if bits == 4:  # M1's float minima are the rerank's distances: exact top-r
+        if bits == 4:  # float minima are the rerank's distances: exact top-r
             torch.testing.assert_close(d.double(), od, rtol=SEARCH_RTOL, atol=0.0,
                                        msg=lambda m: f"{path} vs oracle: {m}")
         elif bits == 8:
             found = [a in set(x) for a, x in zip(ol[:, 0].tolist(), lab.tolist())]
             check(all(found), f"{path}: oracle top-1 missing for {found.count(False)} queries")
-            check(overlap >= MIN_ADC8_OVERLAP, f"{path}: oracle overlap {overlap}")
+            check(ov >= MIN_ADC8_OVERLAP, f"{path}: oracle overlap {ov}")
         else:
             check(top1, f"{path}: top-1 differs from the oracle")
             dn, ln, odn, oln = (t.cpu().numpy() for t in (d, lab, od, ol))
-            for qi in range(ADC_BATCH):  # distances of the labels both hold
+            for qi in range(d.shape[0]):  # distances of the labels both hold
                 _, i, j = np.intersect1d(ln[qi], oln[qi], return_indices=True)
                 np.testing.assert_allclose(dn[qi, i], odn[qi, j], rtol=ADC16_RTOL,
                                            err_msg=f"{path} vs oracle, query {qi}")
+        return top1, ov
+
+    def search_adc(bits, kernels_=lut_scan.DISPATCH):
+        return ivf.search_adc(adc_indexes[bits], qadc, r=R, ma=MA, kernels=kernels_)
+
+    for bits in (4, 8, 16):
+        path = f"adc{bits}"
+        d, lab = got = drive(path, lambda: search_adc(bits))
+        plain_overlap = check_vs_plain(path, ADC_BATCH, got, search_adc(bits, lut_scan.PLAIN))
+        od, ol = want = oracle(torch, adc_indexes[bits], qadc, code_view, unpack_codes, ivf)
+        top1, ov = check_vs_oracle(path, bits, got, want)
         err = float((d.double() - od).abs().max())
         print(f"search {path} b={ADC_BATCH}: vs plain overlap={plain_overlap} | vs oracle "
-              f"top-1 equal={top1} overlap@{R}={overlap} max_abs_err={err:.3g}", flush=True)
+              f"top-1 equal={top1} overlap@{R}={ov} max_abs_err={err:.3g}", flush=True)
+
+    # ---- 2c. the flat index: search_qadc, search_adc at 4, 8 and 16 bits ----
+    flat_runs = {
+        "flat_qadc": lambda k=lut_scan.DISPATCH: flat.search_qadc(
+            fi4, fq[FLAT_BATCH["flat_qadc"]], r=R, keep=FLAT_KEEP, kernels=k),
+        **{f"flat_adc{bits}": lambda k=lut_scan.DISPATCH, bits=bits: flat.search_adc(
+            flat_indexes[bits], fq[FLAT_BATCH[f"flat_adc{bits}"]], r=R, kernels=k)
+           for bits in (4, 8, 16)},
+    }
+    for path, run in flat_runs.items():
+        b = FLAT_BATCH[path]
+        bits = 4 if path == "flat_qadc" else int(path[len("flat_adc"):])
+        d, lab = got = drive(path, run)
+        plain_overlap = check_vs_plain(path, b, got, run(lut_scan.PLAIN))
+        od, ol = want = flat_oracle(torch, flat_indexes[bits], fq[b], unpack_codes)
+        if path == "flat_qadc":  # int8 screen: the oracle's top-1 in the top-R
+            top1 = bool(torch.equal(lab[:, 0].long(), ol[:, 0]))
+            ov = overlap(lab, ol)
+            rec = recall_at_r(lab.cpu().numpy(), ol[:, :1].cpu().numpy())
+            check(rec >= MIN_ORACLE_RECALL, f"{path}: oracle recall {rec}")
+            what = f"oracle top-1 recall@{R}={rec}"
+        else:
+            top1, ov = check_vs_oracle(path, bits, got, want)
+            what = f"top-1 equal={top1}"
+        err = float((d.double() - od).abs().max())
+        print(f"search {path} b={b}: vs plain overlap={plain_overlap} | vs oracle {what} "
+              f"overlap@{R}={ov} max_abs_err={err:.3g}", flush=True)
 
     # ---- 3. end-to-end timing ----------------------------------------------
-    for b in BATCHES:
-        ms, p90 = time_ms(torch, lambda: search(b))
-        busy = device_ms(torch, lambda: search(b))
-        print(f"e2e b={b}: {ms * 1e3 / b:.2f} us/query median, {p90 * 1e3 / b:.2f} p90 "
+    def e2e(label, b, fn):
+        ms, p90 = time_ms(torch, fn)
+        busy = device_ms(torch, fn)
+        print(f"e2e {label} b={b}: {ms * 1e3 / b:.2f} us/query median, {p90 * 1e3 / b:.2f} p90 "
               f"(n={REPS}; {ms:.4f} ms/batch; device busy {busy:.4f} ms/batch, idle share "
               f"{1 - busy / ms:.3f}) [{card}]", flush=True)
+
+    for b in BATCHES:
+        e2e("qadc", b, lambda: search(b))
     for bits in (4, 8):
-        ms, p90 = time_ms(torch, lambda: search_adc(bits))
-        busy = device_ms(torch, lambda: search_adc(bits))
-        print(f"e2e adc{bits} b={ADC_BATCH}: {ms * 1e3 / ADC_BATCH:.2f} us/query median, "
-              f"{p90 * 1e3 / ADC_BATCH:.2f} p90 (n={REPS}; {ms:.4f} ms/batch; device busy "
-              f"{busy:.4f} ms/batch, idle share {1 - busy / ms:.3f}) [{card}]", flush=True)
+        e2e(f"adc{bits}", ADC_BATCH, lambda: search_adc(bits))
+    for path, run in flat_runs.items():
+        e2e(path, FLAT_BATCH[path], run)
 
     # The launch count of each kernel phase comes from the path that runs it.
-    path_of = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8"}
     line = {"kernels": []}
     for name, k in kernels.items():
         base = name.split("[")[0]
-        line["kernels"].append({**k, "launches": launches[path_of.get(base, "qadc")][base]})
+        line["kernels"].append({**k, "launches": launches[PATH_OF.get(base, "qadc")][base]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     print(card)
@@ -428,6 +537,33 @@ def oracle(torch, index, queries, code_view, unpack_codes, ivf):
         sv, order = torch.sort(d.reshape(d.shape[0], -1), dim=-1, stable=True)
         out_d.append(sv[:, :R])
         out_l.append(torch.gather(lab.reshape(d.shape[0], -1), 1, order[:, :R]))
+    return torch.cat(out_d), torch.cat(out_l)
+
+
+def flat_oracle(torch, index, queries, unpack_codes):
+    """Exact float64 ADC over every real code of a flat index, at 4, 8 or 16
+    bits: tables, sums and the ranking recomputed in float64 with plain
+    torch, a few queries at a time. The bench indexes are plain PQ, so the
+    queries need no rotation.
+    Returns (dists (Q, R) float64, labels (Q, R) int64).
+    """
+    m, k, dsq = index.pq.centroids.shape
+    cents = index.pq.centroids.double()
+    idx = unpack_codes(index.codes.reshape(-1, index.pq.code_size), m,
+                       index.pq.sq_bits).long()                          # (n_pad, M)
+    real = torch.arange(idx.shape[0], device=idx.device) < index.n
+    out_d, out_l = [], []
+    step = 8 if k <= 256 else 2  # 16-bit tables: 64 MB of float64 a query
+    for s in range(0, queries.shape[0], step):
+        qs = queries[s:s + step].double()
+        tab = ((qs.reshape(-1, m, 1, dsq) - cents) ** 2).sum(-1)          # (q, M, K)
+        d = torch.zeros((qs.shape[0], idx.shape[0]), dtype=torch.float64, device=qs.device)
+        for mm in range(m):
+            d += tab[:, mm][:, idx[:, mm]]
+        d = torch.where(real, d, torch.inf)
+        sv, order = torch.sort(d, dim=-1, stable=True)
+        out_d.append(sv[:, :R])
+        out_l.append(order[:, :R])
     return torch.cat(out_d), torch.cat(out_l)
 
 

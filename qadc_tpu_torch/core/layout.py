@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 
+# Codes a flat index is padded to a multiple of (qadc_tpu/core/layout.py).
+DEFAULT_BLOCK = 1024
+
 
 def codes_per_row(code_size: int) -> int:
     """Codes per 128-byte storage row."""

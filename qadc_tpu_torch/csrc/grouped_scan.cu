@@ -15,9 +15,9 @@
 // (the port's padded-code rule), and rows at or past ceil(size / cpr) are
 // not read: they get the trim sentinel (1 << 30 for int8 tables, +inf for
 // float), which the caller's size mask removes, as the Pallas kernel's
-// trimmed blocks do. Float sums run over b = 0..CB-1, low nibble then high,
-// the order of rows_adc (rows_adc.cu), so a float window minimum equals the
-// rerank's distance of that code bit for bit.
+// trimmed blocks do. The per-code sum is adc4_sum.cuh's, in the order of
+// rows_adc (rows_adc.cu), so a float window minimum equals the rerank's
+// distance of that code bit for bit.
 //
 // What bounds it on the H100: shared-memory table lookups, not bytes. Each
 // code costs 2*CB byte lookups and adds per pair (256 at 16x4 PQ); the codes
@@ -34,31 +34,17 @@
 // sums the lookups of each code and keeps the minimum over the row's real
 // codes. A chunk with no live slot returns at once.
 
-#include <cmath>
 #include <cstdint>
-#include <climits>
 #include <cuda_runtime.h>
 
+#include "adc4_sum.cuh"
 #include "slot_chunks.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 128;
+using qadc::Acc;
 
-template <typename T>
-struct Acc;
-template <>
-struct Acc<int8_t> {  // Quick ADC: int32 sums of int8 entries
-  using type = int32_t;
-  static __device__ int32_t none() { return INT_MAX; }
-  static __device__ int32_t trim() { return 1 << 30; }
-};
-template <>
-struct Acc<float> {  // conventional ADC: float32 sums
-  using type = float;
-  static __device__ float none() { return INFINITY; }
-  static __device__ float trim() { return INFINITY; }
-};
+constexpr int kRowsPerBlock = 128;
 
 template <int CB, typename T>
 __global__ void __launch_bounds__(kRowsPerBlock)
@@ -93,17 +79,8 @@ grouped_scan_kernel(const uint8_t* __restrict__ codes,       // (P, rpp, 128)
     return;
   }
 
-  const uint4* src = reinterpret_cast<const uint4*>(
-      codes + (static_cast<size_t>(group_part[g]) * rpp + row) * 128);
   uint32_t w[32];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint4 v = src[k];
-    w[4 * k] = v.x;
-    w[4 * k + 1] = v.y;
-    w[4 * k + 2] = v.z;
-    w[4 * k + 3] = v.w;
-  }
+  qadc::load_row(codes + (static_cast<size_t>(group_part[g]) * rpp + row) * 128, w);
 
   for (int s = 0; s < n; ++s) {
     const int p = s_pair[s];
@@ -112,14 +89,7 @@ grouped_scan_kernel(const uint8_t* __restrict__ codes,       // (P, rpp, 128)
     A best = Acc<T>::none();
 #pragma unroll
     for (int c = 0; c < kCpr; ++c) {
-      A acc = 0;
-#pragma unroll
-      for (int b = 0; b < CB; ++b) {
-        const int byte_idx = c * CB + b;
-        const uint32_t byte = (w[byte_idx >> 2] >> ((byte_idx & 3) * 8)) & 0xFFu;
-        acc += t[(2 * b) * 16 + (byte & 15u)];      // even sub-quantizer: low nibble
-        acc += t[(2 * b + 1) * 16 + (byte >> 4)];   // odd sub-quantizer: high nibble
-      }
+      const A acc = qadc::adc4_sum<CB>(w, c, t);
       if (c < real && acc < best) best = acc;
     }
     out[static_cast<size_t>(p) * rpp + row] = best;

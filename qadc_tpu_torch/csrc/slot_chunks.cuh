@@ -5,7 +5,8 @@
 // shared memory. Chunking bounds a block's shared memory by kSmemBudget at
 // any group size and table width: a float table of 32 sub-quantizers is
 // 2 KB and a bf16 8-bit table of 16 is 8 KB, so G = 128 slots would not fit
-// one block.
+// one block. The flat scans (flat_scan.cu, flat_scan8.cu) chunk their
+// queries by slot_chunks in the same way.
 
 #pragma once
 

@@ -1,4 +1,4 @@
-"""Seeded synthetic IVF indexes, numpy only (no download, no training).
+"""Seeded synthetic IVF and flat indexes, numpy only (no download, no training).
 
 `bench_ivf_arrays` draws the index that the JAX package's bench.py
 (`_make_ivf`) times, at the reference's published SIFT1M IVF geometry
@@ -6,15 +6,18 @@
 dim 128, 3906 real codes per partition padded to 4096, about 1M codes.
 `bench_ivf8_arrays` draws bench.py's `_make_ivf8` (the same geometry at 8x8
 PQ), and `bench_ivf16_arrays` a 16-bit index of the same geometry (8x16 PQ,
-16-byte codes), which bench.py does not time. Codebooks, coarse centroids
-and codes are random, so the same seed gives the same index in both
-packages. The moment-matched generators of qadc_tpu/eval/synth.py feed
-trained indexes and wait for the port's build path.
+16-byte codes), which bench.py does not time. `bench_flat_arrays` draws a
+flat index at the reference's flat SIFT1M size (1M codes, dim 128). Codebooks,
+coarse centroids and codes are random, so the same seed gives the same index
+in both packages. The moment-matched generators of qadc_tpu/eval/synth.py
+feed trained indexes and wait for the port's build path.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from qadc_tpu_torch.core.layout import DEFAULT_BLOCK
 
 DIM, PART_PAD, PART_SIZE = 128, 4096, 3906
 
@@ -54,3 +57,18 @@ def bench_ivf16_arrays(rng: np.random.Generator, parts: int = 256):
     """(arrays, manifest) of a 16-bit index at the bench geometry: 8x16 PQ
     (65536 centroids a sub-quantizer, 16-byte codes, 8 per row)."""
     return _ivf_arrays(rng, parts, 8, 16)
+
+
+def bench_flat_arrays(rng: np.random.Generator, m: int, sq_bits: int, n: int = 1_000_000):
+    """Checkpoint-shaped (arrays, manifest) of a flat index of n codes at
+    m x sq_bits PQ, dim 128, padded as FlatBuilder pads (to a multiple of
+    DEFAULT_BLOCK codes: 1,000,448 at n = 1M), but with random codes past n,
+    as the bench IVF indexes are, so every padded code differs from the
+    real ones. `n` cuts the code count only."""
+    code_size = m * sq_bits // 8
+    n_pad = -(-n // DEFAULT_BLOCK) * DEFAULT_BLOCK
+    arrays = {
+        "pq_centroids": rng.normal(size=(m, 1 << sq_bits, DIM // m)).astype(np.float32),
+        "codes": rng.integers(0, 256, size=(n_pad * code_size // 128, 128), dtype=np.uint8),
+    }
+    return arrays, {"n": n, "pq": {"sq_bits": sq_bits, "type": "pq"}}

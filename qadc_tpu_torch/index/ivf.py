@@ -39,7 +39,6 @@ import torch.nn.functional as F
 
 from qadc_tpu_torch.core.layout import code_view, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
-from qadc_tpu_torch.index.flat import decode_rows
 from qadc_tpu_torch.index.routing import group_capacity, route_queries
 from qadc_tpu_torch.kernels.lut_scan import (
     DISPATCH,
@@ -57,7 +56,7 @@ from qadc_tpu_torch.ops.quantization import (
 )
 from qadc_tpu_torch.ops.tables import adc_tables
 from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, topk_smallest
-from qadc_tpu_torch.quantizers.pq import ProductQuantizer
+from qadc_tpu_torch.quantizers.pq import ProductQuantizer, decode_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,19 +331,21 @@ def _search_qadc_grouped_impl(
         cv, parts, sz, min(screen_windows or r, ma * c))
     tw_src = tables if rerank else qtables.to(torch.float32)
     return window_rerank(
-        index, tw_src, screen_v, sel_part, sel_pair, sel_wi, sel_sz, r, kernels,
-        tiles=tiles if rerank else None, clamp127=saturate and not rerank,
+        index.codes, index.labels, tw_src, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
+        r, kernels, tiles=tiles if rerank else None, clamp127=saturate and not rerank,
     )
 
 
 def window_rerank(
-    index: IVFIndex, tables_qa, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
+    codes, labels, tables_qa, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
     r: int, kernels: Kernels, tiles=None, clamp127: bool = False,
 ):
     """Expand the winning windows (storage rows) to their codes and rank them
     by exact float distance (M2 over the selected rows).
 
     Args:
+      codes: (P, rpp, 128) uint8 row128 storage (the flat index: P = 1).
+      labels: (P, part_pad) int32 labels of the codes.
       tables_qa: (Q, ma, M, 16) float tables to rank with (float tables, or
         the int8 tables as float for reference-style ranking).
       screen_v: (Q, wq) screened window minima (inf = dead window).
@@ -356,20 +357,20 @@ def window_rerank(
     """
     q, wq = screen_v.shape
     m = tables_qa.shape[2]
-    cpr = index.cpr
+    rpp = codes.shape[1]
+    cpr = labels.shape[1] // rpp
     a = q * wq
-    rpp = index.codes.shape[1]
     grow = sel_part.reshape(a) * rpp + sel_wi.reshape(a)
-    lab = index.labels.reshape(-1, cpr)[grow]                      # (A, cpr)
+    lab = labels.reshape(-1, cpr)[grow]                            # (A, cpr)
     if tiles is None:
         tiles = tile_tables_rows(tables_qa.reshape(-1, m, 16))
     tlo, thi = tiles
-    cvf = kernels.rows_adc(index.codes.reshape(-1, 128), grow.to(torch.int32),
+    cvf = kernels.rows_adc(codes.reshape(-1, 128), grow.to(torch.int32),
                            sel_pair.reshape(a).to(torch.int32), tlo, thi)
     if clamp127:
         # Saturating-int8 reference semantics: entries >= 0, so min(sum, 127).
         cvf = torch.clamp(cvf, max=127.0)
-    c_iota = torch.arange(cpr, device=index.device)
+    c_iota = torch.arange(cpr, device=codes.device)
     alive = (
         (sel_wi.reshape(a)[:, None] * cpr + c_iota[None, :]) < sel_sz.reshape(a)[:, None]
     ) & torch.isfinite(screen_v).reshape(a)[:, None]
@@ -584,8 +585,8 @@ def _search_adc4_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
     )                                                        # (QA, C) f32, inf trimmed
     sz = index.part_sizes[parts.reshape(qa).long()]
     screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, min(r, ma * c))
-    return window_rerank(index, tables, screen_v, sel_part, sel_pair, sel_wi, sel_sz,
-                         r, kernels)
+    return window_rerank(index.codes, index.labels, tables, screen_v, sel_part, sel_pair,
+                         sel_wi, sel_sz, r, kernels)
 
 
 def _expand_windows(index: IVFIndex, screen_v, sel_part, sel_sz, first, stride: int,

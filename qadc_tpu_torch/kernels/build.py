@@ -41,6 +41,10 @@ SIGNATURES = {
     "qadc_rows_adc": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, stream
     "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, f32, stream
+    "qadc_flat_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out_min, out_idx, n_blocks, q_count, n, m, stream
+    "qadc_flat_scan8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,13 +1,16 @@
 """The search path's kernels: Hopper CUDA kernels and their plain versions
 (counterpart of qadc_tpu/kernels/lut_scan.py).
 
-Four kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
+Six kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
 
   grouped_scan  (M1)  <- lut_scan_grouped_tq / lut_scan_grouped_prefetch,
                          int8 tables (Quick ADC) or float32 (4-bit ADC)
   grouped_scan8 (5+6) <- lut_scan8_grouped_tq / lut_scan8_grouped_prefetch
   rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul)
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
+  flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8 or
+                         float32 tables
+  flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit)
 
 Each wrapper checks its arguments, then dispatches on the device of the
 tensors it was given: on the CPU it runs the plain PyTorch version beside
@@ -17,8 +20,9 @@ There is no fallback from CUDA to the plain version. The plain versions
 take the same arguments and return the same results; tests hold them to
 the JAX package, and the kernels to them.
 
-Padded codes (at or past a partition's size) never enter a grouped scan's
-window minimum: M1 and grouped_scan8 take each group's size in codes.
+Padded codes (at or past a partition's size, or the flat index's n) never
+enter a scan's window minimum: M1 and grouped_scan8 take each group's size
+in codes, flat_scan and flat_scan8 the real code count.
 """
 
 from __future__ import annotations
@@ -40,11 +44,16 @@ TRIM_SENTINEL = 1 << 30
 TILE = 32
 # Sub-quantizer counts grouped_scan8 takes (8-bit codes of m bytes).
 SCAN8_SQ_COUNTS = (4, 8, 16)
+# Sub-quantizer counts flat_scan8 takes, and its window (the flat index's
+# lut_scan8_reduce call: block_n 256, window 16).
+FLAT_SCAN8_SQ_COUNTS = (4, 8, 16, 32)
+FLAT8_BLOCK, FLAT8_WINDOW = 256, 16
 
 # Launches of each kernel since the last reset_launch_counts();
-# grouped_scan_f32 is M1 with float tables.
+# grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
-            "rows_adc": 0, "direct_scan": 0}
+            "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
+            "flat_scan8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -108,6 +117,21 @@ def _check_groups(codes, group_part, slot_pair, group_sizes) -> None:
     gcap, g = slot_pair.shape
     if g < 1 or group_part.shape[0] != gcap or group_sizes.shape[0] != gcap:
         raise ValueError("group_part, slot_pair and group_sizes disagree on gcap")
+
+
+def _first_min(vals, ids):
+    """Minimum along the last axis and the id of its first occurrence.
+
+    vals: (..., W); ids: (..., W) broadcastable to vals, ascending along W,
+    so the strict compare keeps the lower id on ties, as the kernels do.
+    """
+    ids = ids.expand(vals.shape)
+    best, arg = vals[..., 0], ids[..., 0]
+    for k in range(1, vals.shape[-1]):
+        take = vals[..., k] < best
+        best = torch.where(take, vals[..., k], best)
+        arg = torch.where(take, ids[..., k], arg)
+    return best, arg
 
 
 def _live_slots(slot_pair, group_part, group_sizes):
@@ -253,14 +277,9 @@ def grouped_scan8_plain(codes, tables, group_part, slot_pair, group_sizes):
     code = torch.arange(rpp * cpr, device=dev)
     acc = torch.where(code[None, :] < size[:, None], acc, torch.inf)
     # Code row*cpr + k*cs + c0 sits at [row, k, c0]: windows reduce over k.
-    acc = acc.reshape(-1, rpp, window, cs)
-    code = code.reshape(rpp, window, cs)
-    best = acc[:, :, 0]
-    arg = code[None, :, 0].expand_as(best)
-    for k in range(1, window):  # strict: ties keep the lower code
-        take = acc[:, :, k] < best
-        best = torch.where(take, acc[:, :, k], best)
-        arg = torch.where(take, code[None, :, k], arg)
+    acc = acc.reshape(-1, rpp, window, cs).transpose(2, 3)
+    code = code.reshape(rpp, window, cs).transpose(1, 2)
+    best, arg = _first_min(acc, code)
     arg = torch.where(torch.isinf(best), -1, arg)
     out_min = torch.full((qa, rpp * cs), torch.inf, dtype=torch.float32, device=dev)
     out_idx = torch.full((qa, rpp * cs), -1, dtype=torch.int32, device=dev)
@@ -385,6 +404,158 @@ def direct_scan_plain(codes, pair_part, tlo, thi, sizes):
     return d, d.reshape(qa, part_pad // TILE, TILE).amin(dim=-1)
 
 
+# ---------------------------------------------------------------- 7 + 8
+
+
+def flat_scan(codes_rows, tables, n: int, with_rows: bool = False):
+    """Flat 4-bit ADC scan to per-query row minima.
+
+    Args:
+      codes_rows: (R, 128) uint8 row128 storage.
+      tables: (Q, M, 16) per-query tables, M in (16, 32): int8 with entries
+        in [0, 127] (Quick ADC), or float32 (conventional ADC).
+      n: real code count; codes at or past n are padding.
+      with_rows: also return the code index of each minimum.
+
+    Returns:
+      (mins, idx): mins (Q, R) int32 (int8 tables) or float32, mins[q, i]
+      the minimum over the real codes of storage row i of sum_m
+      tables[q, m, nibble_m], summed over b = 0..cb-1, low nibble then high
+      (no 127 saturation); TRIM_SENTINEL (int32) or +inf (float32) for a row
+      with no real code. idx (Q, R) int32 is the code index of the minimum
+      (ties to the lower code, -1 for a row with no real code), or None
+      without with_rows.
+    """
+    dev = codes_rows.device
+    _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
+    f32 = getattr(tables, "dtype", None) == torch.float32
+    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
+    q, m, k = tables.shape
+    if codes_rows.shape[1] != 128 or k != 16 or m not in (16, 32):
+        raise ValueError(f"need (R, 128) codes and (Q, 16|32, 16) tables, got "
+                         f"{tuple(codes_rows.shape)} and {tuple(tables.shape)}")
+    r_count = codes_rows.shape[0]
+    n = max(0, min(int(n), r_count * (256 // m)))
+    if dev.type == "cpu":
+        return flat_scan_plain(codes_rows, tables, n, with_rows)
+    _require_cuda(dev, codes_rows, tables)
+    out = torch.empty((q, r_count), dtype=tables.dtype if f32 else torch.int32, device=dev)
+    idx = torch.empty((q, r_count), dtype=torch.int32, device=dev) if with_rows else None
+    if q and r_count:
+        _launch("qadc_flat_scan", dev, codes_rows.data_ptr(), tables.data_ptr(),
+                out.data_ptr(), None if idx is None else idx.data_ptr(), r_count, q, n,
+                m // 2, int(f32))
+        launches["flat_scan_f32" if f32 else "flat_scan"] += 1
+    return out, idx
+
+
+def flat_scan_plain(codes_rows, tables, n: int, with_rows: bool = False):
+    """Plain PyTorch version of flat_scan (same arguments and result)."""
+    q, m, _ = tables.shape
+    cb = m // 2
+    cpr = 128 // cb
+    r_count = codes_rows.shape[0]
+    f32 = tables.dtype == torch.float32
+    acc_dtype = torch.float32 if f32 else torch.int32
+    dev = codes_rows.device
+    codes = codes_rows.reshape(-1, cb)                            # (N_pad, cb)
+    tab = tables.to(acc_dtype)
+    acc = torch.zeros((q, codes.shape[0]), dtype=acc_dtype, device=dev)
+    for b in range(cb):  # rows_adc's order: b = 0..cb-1, low nibble then high
+        byte = codes[:, b].long()
+        acc = acc + tab[:, 2 * b][:, byte & 15]
+        acc = acc + tab[:, 2 * b + 1][:, byte >> 4]
+    code = torch.arange(codes.shape[0], device=dev)
+    none = torch.inf if f32 else torch.iinfo(torch.int32).max
+    acc = torch.where(code < n, acc, none)                       # padded codes
+    best, arg = _first_min(acc.reshape(q, r_count, cpr), code.reshape(r_count, cpr))
+    empty = torch.arange(r_count, device=dev) * cpr >= n         # no real code
+    best = torch.where(empty, torch.inf if f32 else TRIM_SENTINEL, best)
+    if not with_rows:
+        return best, None
+    return best, torch.where(empty, -1, arg).to(torch.int32)
+
+
+# ---------------------------------------------------------------- 9
+
+
+def flat8_members(window_ids: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., 16) code indices of flat_scan8's windows, ascending.
+
+    Window b*16 + j of 256-code block b holds the codes of slots {w*16 + j :
+    w < 16} (the JAX package's window_slots at block_n 256, window 16,
+    mapped by slots_to_rows): storage rows j + 16k (k < 16 / cpr), every
+    position, when cpr <= 16; at cpr = 32 (m = 4), the positions of parity
+    j // 8 of row j % 8.
+    """
+    cpr = 128 // m
+    blk = window_ids // FLAT8_WINDOW
+    j = (window_ids % FLAT8_WINDOW)[..., None]
+    rank = torch.arange(FLAT8_WINDOW, device=window_ids.device)
+    if cpr == 32:
+        local = (j % 8) * 32 + 2 * rank + j // 8
+    else:
+        local = (j + 16 * (rank // cpr)) * cpr + rank % cpr
+    return blk[..., None] * FLAT8_BLOCK + local
+
+
+def flat_scan8(codes_rows, tables, n: int):
+    """Flat 8-bit conventional-ADC scan to per-query window minima.
+
+    Args:
+      codes_rows: (R, 128) uint8 row128 storage of m-byte codes, R * cpr a
+        multiple of FLAT8_BLOCK.
+      tables: (Q, m, 256) bfloat16 per-query tables, m in FLAT_SCAN8_SQ_COUNTS.
+      n: real code count; codes at or past n are padding.
+
+    Returns:
+      (mins (Q, C) float32, idx (Q, C) int32), C = R * cpr / 16 windows of
+      flat8_members: the minimum over the window's real codes of sum_b
+      float(tables[q, b, byte_b]), summed in float32 over b = 0..m-1, and
+      the code index of the minimum (ties to the lower code); +inf and -1
+      for a window with no real code.
+    """
+    dev = codes_rows.device
+    _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
+    _check(tables, "tables", torch.bfloat16, 3, dev)
+    q, m, k = tables.shape
+    if k != 256 or m not in FLAT_SCAN8_SQ_COUNTS:
+        raise ValueError(f"need (Q, m, 256) tables with m in {FLAT_SCAN8_SQ_COUNTS}, "
+                         f"got {tuple(tables.shape)}")
+    n_pad = codes_rows.shape[0] * (128 // m)
+    if codes_rows.shape[1] != 128 or n_pad % FLAT8_BLOCK:
+        raise ValueError(f"need (R, 128) codes holding a multiple of {FLAT8_BLOCK} codes, "
+                         f"got {tuple(codes_rows.shape)}")
+    n = max(0, min(int(n), n_pad))
+    if dev.type == "cpu":
+        return flat_scan8_plain(codes_rows, tables, n)
+    _require_cuda(dev, codes_rows, tables)
+    c = n_pad // FLAT8_WINDOW
+    mins = torch.empty((q, c), dtype=torch.float32, device=dev)
+    idx = torch.empty((q, c), dtype=torch.int32, device=dev)
+    if q and n_pad:
+        _launch("qadc_flat_scan8", dev, codes_rows.data_ptr(), tables.data_ptr(),
+                mins.data_ptr(), idx.data_ptr(), n_pad // FLAT8_BLOCK, q, n, m)
+        launches["flat_scan8"] += 1
+    return mins, idx
+
+
+def flat_scan8_plain(codes_rows, tables, n: int):
+    """Plain PyTorch version of flat_scan8 (same arguments and result)."""
+    q, m, _ = tables.shape
+    dev = codes_rows.device
+    codes = codes_rows.reshape(-1, m)                             # (N_pad, m)
+    tab = tables.to(torch.float32)
+    acc = torch.zeros((q, codes.shape[0]), dtype=torch.float32, device=dev)
+    for b in range(m):
+        acc = acc + tab[:, b][:, codes[:, b].long()]
+    code = torch.arange(codes.shape[0], device=dev)
+    acc = torch.where(code < n, acc, torch.inf)                  # padded codes
+    members = flat8_members(torch.arange(codes.shape[0] // FLAT8_WINDOW, device=dev), m)
+    best, arg = _first_min(acc[:, members], members)            # (Q, C)
+    return best, torch.where(torch.isinf(best), -1, arg).to(torch.int32)
+
+
 class Kernels(NamedTuple):
     """The kernel functions a search runs (see DISPATCH and PLAIN)."""
 
@@ -392,9 +563,12 @@ class Kernels(NamedTuple):
     rows_adc: Callable
     direct_scan: Callable
     grouped_scan8: Callable
+    flat_scan: Callable
+    flat_scan8: Callable
 
 
 # The search path's default: kernels on CUDA tensors, plain versions on CPU.
-DISPATCH = Kernels(grouped_scan, rows_adc, direct_scan, grouped_scan8)
+DISPATCH = Kernels(grouped_scan, rows_adc, direct_scan, grouped_scan8, flat_scan, flat_scan8)
 # The plain versions on any device, for comparing a search on the card.
-PLAIN = Kernels(grouped_scan_plain, rows_adc_plain, direct_scan_plain, grouped_scan8_plain)
+PLAIN = Kernels(grouped_scan_plain, rows_adc_plain, direct_scan_plain, grouped_scan8_plain,
+                flat_scan_plain, flat_scan8_plain)

@@ -1,6 +1,6 @@
 """Product quantizer state (counterpart of qadc_tpu/quantizers/pq.py).
 
-Search only: codebooks and geometry, no training or encoding.
+Search only: codebooks, geometry and reconstruction; no training or encoding.
 """
 
 from __future__ import annotations
@@ -38,3 +38,18 @@ class ProductQuantizer:
     def rotate(self, vectors: torch.Tensor) -> torch.Tensor:
         """Identity for plain PQ (OPQ overrides)."""
         return vectors
+
+
+def decode_rows(pq: ProductQuantizer, idx: torch.Tensor) -> torch.Tensor:
+    """PQ reconstruction of centroid indices (the JAX package's
+    index/flat.py:decode_rows; the flat index re-exports it).
+
+    Args:
+      idx: (..., M) integer centroid indices.
+
+    Returns:
+      (..., dim) float32: the M sub-quantizers' centroids, concatenated.
+    """
+    m, _, dsq = pq.centroids.shape
+    sq = torch.arange(m, device=idx.device)
+    return pq.centroids[sq, idx.long()].reshape(*idx.shape[:-1], m * dsq)

@@ -65,6 +65,6 @@ def test_opq_search_matches_reference():
 
 
 def test_load_rejects_other_checkpoints(tmp_path):
-    (tmp_path / "manifest.json").write_text('{"format": 1, "type": "flat"}')
+    (tmp_path / "manifest.json").write_text('{"format": 1, "type": "ivf_sharded"}')
     with pytest.raises(ValueError):
         load_index(str(tmp_path))

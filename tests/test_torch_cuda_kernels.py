@@ -5,19 +5,22 @@ run it without the JAX test configuration:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: M1 (int32 sums) bit-exact; M1 with float tables, grouped_scan8,
+Tolerances: M1 and flat_scan with int8 tables (int32 sums) bit-exact; the
+float scans (M1 and flat_scan with float tables, grouped_scan8, flat_scan8),
 M2 and M3 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
 kernels' order, but the card may contract or round differently. MASK_BIG
-placement, trim sentinels, dead windows and argmin indices exact.
+placement, trim sentinels and dead windows exact; argmin indices equal
+(flat scans: wherever the minima are equal bit for bit).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from qadc_tpu_torch.convert import ivf_index_from_arrays
-from qadc_tpu_torch.eval.synth import bench_ivf8_arrays, bench_ivf16_arrays, bench_ivf_arrays
-from qadc_tpu_torch.index import ivf
+from qadc_tpu_torch.convert import flat_index_from_arrays, ivf_index_from_arrays
+from qadc_tpu_torch.eval.synth import (bench_flat_arrays, bench_ivf8_arrays,
+                                       bench_ivf16_arrays, bench_ivf_arrays)
+from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.kernels import lut_scan
 
@@ -151,3 +154,74 @@ def test_search_adc_on_card_matches_plain(cuda, make):
     _close(d.cpu(), pd.cpu())
     assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])
     assert torch.equal(l.cpu()[:, 0], el.cpu()[:, 0])
+
+
+def _same_minima(got, want, f32: bool):
+    """Minima of a flat scan equal (int32) or close (float, +inf placed alike)."""
+    if not f32:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("with_rows", [False, True])
+def test_flat_scan_matches_plain(cuda, m, f32, with_rows):
+    g = np.random.default_rng(300 + m)
+    r_count, q = 300, 300          # a partial row tile; several query chunks
+    cpr = 256 // m
+    codes = torch.from_numpy(g.integers(0, 256, (r_count, 128), dtype=np.uint8))
+    if f32:
+        tables = torch.from_numpy(g.random((q, m, 16)).astype(np.float32))
+    else:
+        tables = torch.from_numpy(g.integers(0, 128, (q, m, 16)).astype(np.int8))
+    n = r_count * cpr - 5 * cpr - 3             # a partly real row, then padding
+    want_v, want_i = lut_scan.flat_scan_plain(codes, tables, n, with_rows)
+    key = "flat_scan_f32" if f32 else "flat_scan"
+    before = lut_scan.launches[key]
+    got_v, got_i = lut_scan.flat_scan(codes.to(cuda), tables.to(cuda), n, with_rows)
+    torch.cuda.synchronize()
+    assert lut_scan.launches[key] == before + 1
+    _same_minima(got_v.cpu(), want_v, f32)
+    if with_rows:
+        same = got_v.cpu() == want_v
+        assert same.float().mean() > 0.99
+        assert torch.equal(got_i.cpu()[same], want_i[same])
+    else:
+        assert got_i is None and want_i is None
+
+
+@pytest.mark.parametrize("m", [4, 8, 16, 32])
+def test_flat_scan8_matches_plain(cuda, m):
+    g = np.random.default_rng(400 + m)
+    n_pad, q = 256 * 37, 37        # a partial last thread block; several query chunks
+    codes = torch.from_numpy(g.integers(0, 256, (n_pad * m // 128, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.random((q, m, 256)).astype(np.float32)).to(torch.bfloat16)
+    n = n_pad - 300
+    want_v, want_i = lut_scan.flat_scan8_plain(codes, tables, n)
+    before = lut_scan.launches["flat_scan8"]
+    got_v, got_i = lut_scan.flat_scan8(codes.to(cuda), tables.to(cuda), n)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan8"] == before + 1
+    got_v, got_i = got_v.cpu(), got_i.cpu()
+    _same_minima(got_v, want_v, True)
+    same = got_v == want_v
+    assert same.float().mean() > 0.99
+    assert torch.equal(got_i[same], want_i[same])
+
+
+@pytest.mark.parametrize("m,bits", [(16, 4), (8, 8), (8, 16)])
+def test_flat_search_on_card_matches_plain(cuda, m, bits):
+    arrays, meta = bench_flat_arrays(np.random.default_rng(0), m, bits, n=50_000)
+    index = flat_index_from_arrays(arrays, meta, cuda)
+    queries = np.random.default_rng(1).normal(size=(8, 128)).astype(np.float32)
+    runs = [lambda k: flat.search_adc(index, queries, r=50, kernels=k)]
+    if bits == 4:
+        runs.append(lambda k: flat.search_qadc(index, queries, r=50, keep=0.01, kernels=k))
+    for run in runs:
+        (d, l), (pd, pl) = run(lut_scan.DISPATCH), run(lut_scan.PLAIN)
+        _close(d.cpu(), pd.cpu())
+        assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])

@@ -27,7 +27,7 @@ def test_port_has_the_mirrored_modules():
     for rel in ("core/packing.py", "core/layout.py", "quantizers/pq.py",
                 "quantizers/opq.py", "index/ivf.py", "index/routing.py",
                 "index/flat.py", "io/checkpoint.py", "ops/knn.py", "ops/tables.py",
-                "ops/quantization.py", "ops/topk.py", "kernels/lut_scan.py",
+                "ops/quantization.py", "ops/topk.py", "kernels/lut_scan.py", "kernels/scan_ref.py",
                 "eval/recall.py", "eval/synth.py", "convert.py"):
         assert rel in names, rel
 
