@@ -1,11 +1,14 @@
-"""qadc_tpu_torch: the IVF Quick-ADC search of `qadc_tpu`, in PyTorch.
+"""qadc_tpu_torch: `qadc_tpu` in PyTorch: PQ/OPQ training, the flat and IVF
+index builders, the checkpoint, and Quick-ADC and conventional ADC search.
 
 The JAX package `qadc_tpu` is the reference; this package mirrors its module
 paths (`qadc_tpu_torch/index/ivf.py` <-> `qadc_tpu/index/ivf.py`). Plain
-tensor code is PyTorch; the three Pallas kernels on the search path are
-hand-written CUDA C++ for Hopper (`csrc/`, built at first use by
+tensor code is PyTorch; every Pallas kernel of the reference has a
+hand-written CUDA C++ counterpart for Hopper (`csrc/`, built at first use by
 `kernels/build.py`). Each kernel wrapper runs the kernel on CUDA tensors and
-its plain PyTorch version on CPU tensors (`kernels/lut_scan.py`).
+its plain PyTorch version on CPU tensors (`kernels/lut_scan.py`). Entry
+points run on the card unless the caller hands them CPU tensors or names
+another device (`core/tensors.py`).
 
 This package never imports jax.
 """

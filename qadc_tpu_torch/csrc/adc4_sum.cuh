@@ -1,5 +1,5 @@
 // The 4-bit ADC sum of one code, shared by the 4-bit scans (grouped_scan.cu,
-// flat_scan.cu) so that the float sum order has a single definition: over
+// flat_scan.cu, flat_scan_window.cu) so that the float sum order has a single definition: over
 // code bytes b = 0..CB-1, the even sub-quantizer's entry (low nibble), then
 // the odd one's (high nibble). That is rows_adc's order (rows_adc.cu), so a
 // float minimum of a scan is bit for bit the rerank's distance of its code.
@@ -55,6 +55,21 @@ __device__ __forceinline__ typename Acc<T>::type adc4_sum(const uint32_t (&w)[32
   for (int b = 0; b < CB; ++b) {
     const int byte_idx = c * CB + b;
     const uint32_t byte = (w[byte_idx >> 2] >> ((byte_idx & 3) * 8)) & 0xFFu;
+    acc += t[(2 * b) * 16 + (byte & 15u)];      // even sub-quantizer: low nibble
+    acc += t[(2 * b + 1) * 16 + (byte >> 4)];   // odd sub-quantizer: high nibble
+  }
+  return acc;
+}
+
+// The same sum, in the same order, of one code held alone in CB / 4 words
+// (flat_scan_window.cu reads codes from shared memory, one at a time).
+template <int CB, typename T>
+__device__ __forceinline__ typename Acc<T>::type adc4_code_sum(const uint32_t (&cw)[CB / 4],
+                                                               const T* t) {
+  typename Acc<T>::type acc = 0;
+#pragma unroll
+  for (int b = 0; b < CB; ++b) {
+    const uint32_t byte = (cw[b >> 2] >> ((b & 3) * 8)) & 0xFFu;
     acc += t[(2 * b) * 16 + (byte & 15u)];      // even sub-quantizer: low nibble
     acc += t[(2 * b + 1) * 16 + (byte >> 4)];   // odd sub-quantizer: high nibble
   }

@@ -1,4 +1,5 @@
-"""Seeded synthetic IVF and flat indexes, numpy only (no download, no training).
+"""Seeded synthetic data, numpy only (no download): random indexes at the
+bench geometries, and moment-matched vector sets for trained indexes.
 
 `bench_ivf_arrays` draws the index that the JAX package's bench.py
 (`_make_ivf`) times, at the reference's published SIFT1M IVF geometry
@@ -9,8 +10,12 @@ PQ), and `bench_ivf16_arrays` a 16-bit index of the same geometry (8x16 PQ,
 16-byte codes), which bench.py does not time. `bench_flat_arrays` draws a
 flat index at the reference's flat SIFT1M size (1M codes, dim 128). Codebooks,
 coarse centroids and codes are random, so the same seed gives the same index
-in both packages. The moment-matched generators of qadc_tpu/eval/synth.py
-feed trained indexes and wait for the port's build path.
+in both packages.
+
+`sift_moment_like` and `gist_moment_like` are the port's own copies of the
+JAX package's generators (qadc_tpu/eval/synth.py), draw for draw: vector
+sets tuned to land trained indexes in the recall regime of SIFT1M / GIST1M,
+for recall against true neighbours where the real files cannot be had.
 """
 
 from __future__ import annotations
@@ -72,3 +77,59 @@ def bench_flat_arrays(rng: np.random.Generator, m: int, sq_bits: int, n: int = 1
         "codes": rng.integers(0, 256, size=(n_pad * code_size // 128, 128), dtype=np.uint8),
     }
     return arrays, {"n": n, "pq": {"sq_bits": sq_bits, "type": "pq"}}
+
+
+def sift_moment_like(rng, n, nq=256, clusters=2048, spread=0.5, dim=128):
+    """SIFT-moment-matched (base (n, dim), queries (nq, dim)) float32.
+
+    Gamma marginals with SIFT's 4x4x8 cell-energy profile (corner and edge
+    cells carry less gradient energy), hierarchical clusters, per-sample
+    illumination scaling, uint8 quantization.
+    """
+    cell_w = np.array([
+        0.55, 0.75, 0.75, 0.55,
+        0.75, 1.0, 1.0, 0.75,
+        0.75, 1.0, 1.0, 0.75,
+        0.55, 0.75, 0.75, 0.55,
+    ])
+    profile = np.repeat(cell_w, 8)[:dim]
+    centers = rng.gamma(1.2, 40.0, size=(clusters, dim)).astype(np.float32)
+    centers *= profile[None, :]
+
+    def draw(k):
+        c = centers[rng.integers(0, clusters, k)]
+        x = c * rng.lognormal(0.0, spread, size=(k, 1)).astype(np.float32)
+        x = x + rng.normal(scale=spread * (c + 8.0)).astype(np.float32)
+        return np.clip(np.rint(x), 0, 255).astype(np.float32)
+
+    return draw(n), draw(nq)
+
+
+def gist_moment_like(rng, n, nq=256, clusters=2048, spread=0.45, dim=960):
+    """GIST-moment-matched (base (n, dim), queries (nq, dim)) float32.
+
+    Scene-type cluster centers with a smooth per-cell energy envelope over a
+    4x4 grid of dim/16 channels, per-sample global illumination (lognormal),
+    per-cell activation jitter shared by a cell's channels, plus channel
+    noise; small positive floats, no rounding.
+    """
+    cells, chans = 16, dim // 16
+    cell_w = np.array([
+        0.7, 0.85, 0.85, 0.7,
+        0.85, 1.0, 1.0, 0.85,
+        0.85, 1.0, 1.0, 0.85,
+        0.7, 0.85, 0.85, 0.7,
+    ])
+    profile = np.repeat(cell_w, chans)[:dim]
+    centers = rng.gamma(1.5, 0.045, size=(clusters, dim)).astype(np.float32)
+    centers *= profile[None, :]
+
+    def draw(k):
+        c = centers[rng.integers(0, clusters, k)]
+        g = rng.lognormal(0.0, spread, size=(k, 1)).astype(np.float32)
+        cell_act = rng.lognormal(0.0, spread * 0.8, size=(k, cells)).astype(np.float32)
+        act = np.repeat(cell_act, chans, axis=1)[:, :dim]
+        x = c * g * act + rng.normal(scale=spread * 0.35 * (c + 0.01)).astype(np.float32)
+        return np.clip(x, 0.0, 1.0).astype(np.float32)
+
+    return draw(n), draw(nq)

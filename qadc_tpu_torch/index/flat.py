@@ -31,8 +31,11 @@ import torch
 
 from qadc_tpu_torch.core.layout import DEFAULT_BLOCK, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
+from qadc_tpu_torch.core.tensors import full_f32_matmul
 from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.kernels.lut_scan import (
+    DEFAULT_BLOCK_N,
+    DEFAULT_WINDOW,
     DISPATCH,
     FLAT8_BLOCK,
     FLAT8_WINDOW,
@@ -51,12 +54,8 @@ from qadc_tpu_torch.ops.topk import (exact_screen_smallest, exact_tile_screen, m
                                      topk_smallest)
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer, decode_rows
 
-__all__ = ["FlatIndex", "decode_rows", "search_adc", "search_qadc", "window_search_rows"]
+__all__ = ["FlatIndex", "add", "decode_rows", "search_adc", "search_qadc", "window_search_rows"]
 
-# The JAX package's flat kernel gates (qadc_tpu/kernels/lut_scan.py): codes
-# per scan block, and the window that sets how many candidates a query has.
-DEFAULT_BLOCK_N = 1024
-DEFAULT_WINDOW = 16
 # Codes decoded per step of the 16-bit search (the last chunk may be shorter).
 RECON_CHUNK = 65536
 
@@ -110,6 +109,17 @@ class FlatIndex:
         """(N_pad,) int32 code indices, the padded tail clamped to n - 1."""
         lab = torch.arange(self.n_pad, dtype=torch.int32, device=self.device)
         return torch.clamp(lab, max=max(self.n - 1, 0))
+
+
+def add(index: FlatIndex, vectors, encode_batch: int = 262144) -> FlatIndex:
+    """Encode and append vectors: a one-shot wrapper over
+    index/build.FlatBuilder. For streamed ingest use the builder directly
+    (one concatenation and re-layout at finalize)."""
+    from qadc_tpu_torch.index.build import FlatBuilder
+
+    b = FlatBuilder.from_index(index)
+    b.add(vectors, encode_batch=encode_batch)
+    return b.finalize()
 
 
 def _prefix_size(n: int, keep: float) -> int:
@@ -333,7 +343,7 @@ def _search_adc_recon(index: FlatIndex, queries, r: int):
         c = min(RECON_CHUNK, n_pad - s)
         rows = index.codes[s // cpr:(s + c) // cpr]
         dec = decode_rows(pq, unpack_codes(rows.reshape(c, pq.code_size), pq.sq_count, 16))
-        with ivf._full_f32_matmul():
+        with full_f32_matmul():
             cross = rotated @ dec.T                                 # (Q, c)
         d = q2[:, None] + (dec * dec).sum(dim=1)[None, :] - 2.0 * cross
         col = torch.arange(s, s + c, device=dev)

@@ -30,7 +30,6 @@ enters the results. Padded codes never enter a window minimum.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 
@@ -39,6 +38,8 @@ import torch.nn.functional as F
 
 from qadc_tpu_torch.core.layout import code_view, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
+from qadc_tpu_torch.core.tensors import (DEFAULT_DEVICE, as_f32, as_generator,
+                                         full_f32_matmul, to_f32)
 from qadc_tpu_torch.index.routing import group_capacity, route_queries
 from qadc_tpu_torch.kernels.lut_scan import (
     DISPATCH,
@@ -48,6 +49,7 @@ from qadc_tpu_torch.kernels.lut_scan import (
     Kernels,
     scan8_windows,
 )
+from qadc_tpu_torch.ops.kmeans import balance_centroids, kmeans
 from qadc_tpu_torch.ops.knn import exact_knn
 from qadc_tpu_torch.ops.quantization import (
     clamp_bound_to_max_distance,
@@ -57,6 +59,10 @@ from qadc_tpu_torch.ops.quantization import (
 from qadc_tpu_torch.ops.tables import adc_tables
 from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, topk_smallest
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer, decode_rows
+
+
+# Partition padding granularity in codes (qadc_tpu/index/ivf.py:PART_ALIGN).
+PART_ALIGN = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +87,21 @@ class IVFIndex:
     n: int
     max_part_size: int
 
+    @classmethod
+    def create(cls, pq: ProductQuantizer, coarse_centroids) -> "IVFIndex":
+        """Empty index on the quantizer's device: PART_ALIGN zero codes a
+        partition, n = 0."""
+        dev = pq.centroids.device
+        cc = to_f32(coarse_centroids, dev)
+        p = cc.shape[0]
+        return cls(
+            pq=pq, coarse_centroids=cc,
+            codes=torch.zeros((p, PART_ALIGN // codes_per_row(pq.code_size), 128),
+                              dtype=torch.uint8, device=dev),
+            labels=torch.zeros((p, PART_ALIGN), dtype=torch.int32, device=dev),
+            part_sizes=torch.zeros((p,), dtype=torch.int32, device=dev),
+            n=0, max_part_size=0)
+
     @property
     def part_count(self) -> int:
         return self.coarse_centroids.shape[0]
@@ -96,6 +117,70 @@ class IVFIndex:
     @property
     def device(self) -> torch.device:
         return self.codes.device
+
+
+def set_quantizer(index: IVFIndex, pq: ProductQuantizer) -> IVFIndex:
+    """Install an (externally trained) quantizer into an EMPTY IVF index.
+
+    Codes already present were encoded with the old quantizer and would be
+    misread, so a non-empty index is rejected: swap first, then add vectors.
+    """
+    dim = index.coarse_centroids.shape[1]
+    if pq.dim != dim:
+        raise ValueError(f"quantizer dim {pq.dim} != index dim {dim}")
+    if index.n != 0:
+        raise ValueError(f"cannot swap quantizer into a non-empty index (n={index.n}): "
+                         "existing codes were encoded with the old quantizer")
+    return IVFIndex.create(pq, index.coarse_centroids)
+
+
+def keep_for_init(init: int, part_count: int, ma: int, n: int) -> float:
+    """The paper's `init` (codes scanned exactly per query) as a keep
+    fraction: keep = (init * K) / (ma * N)."""
+    if min(init, part_count, ma, n) <= 0:
+        raise ValueError("all of init, part_count, ma, n must be positive")
+    return (init * part_count) / (ma * n)
+
+
+def train_coarse(generator, learn_vectors, part_count: int, iters: int = 50,
+                 balance_cap: float | None = None, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Learn the coarse quantizer: k-means++ and `iters` Lloyd iterations.
+
+    generator: torch.Generator on the data's device, or an int seed.
+    learn_vectors: (N, dim); a tensor stays on its device, numpy goes to
+      `device`.
+    balance_cap: optional ratio: bound the largest cell at balance_cap x the
+      mean cell size by splitting oversized cells (part_count unchanged;
+      ops/kmeans.balance_centroids). Every partition is padded to the
+      largest, so unbounded cell skew inflates the whole index; 3.0 suits
+      clustered data, None keeps plain Lloyd.
+
+    Returns (part_count, dim) float32 centroids.
+    """
+    x = as_f32(learn_vectors, device)
+    gen = as_generator(generator, x.device)
+    centroids, _ = kmeans(gen, x, part_count, iters)
+    if balance_cap is not None:
+        centroids, _ = balance_centroids(gen, x, centroids, cap_ratio=balance_cap)
+    return centroids
+
+
+def compute_residuals(index: IVFIndex, vectors, assignments) -> torch.Tensor:
+    """residual = vector - coarse_centroid[assignment], on the index's device."""
+    dev = index.device
+    assignments = torch.as_tensor(assignments, device=dev).long()
+    return to_f32(vectors, dev) - index.coarse_centroids[assignments]
+
+
+def add(index: IVFIndex, vectors, encode_batch: int = 262144) -> IVFIndex:
+    """Assign -> residual -> encode -> scatter into partitions: a one-shot
+    wrapper over index/build.IVFBuilder. For streamed ingest use the builder
+    directly, so that buffers append in place and padding happens once."""
+    from qadc_tpu_torch.index.build import IVFBuilder
+
+    b = IVFBuilder.from_index(index)
+    b.add(vectors, encode_batch=encode_batch)
+    return b.finalize()
 
 
 def assign_queries(index: IVFIndex, queries: torch.Tensor, ma: int):
@@ -476,18 +561,6 @@ def _table_sum(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """Float32 matrix products in full float32 (no TF32) inside the block,
-    whatever the process-wide setting; the setting is restored after."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _search_qadc_impl(index: IVFIndex, queries, r: int, ma: int, keep: float,
                       prefix_pad: int, rerank: bool, kernels: Kernels,
                       saturate: bool = False, bound=None):
@@ -547,7 +620,7 @@ def _search_adc_probe_impl(index: IVFIndex, queries, r: int, ma: int):
         if wide:
             dec = decode_rows(pq, idx)                       # (Q, part_pad, dim)
             ra = rot[:, a]
-            with _full_f32_matmul():
+            with full_f32_matmul():
                 cross = torch.bmm(dec, ra[:, :, None])[..., 0]
             d = (ra * ra).sum(-1)[:, None] + (dec * dec).sum(-1) - 2.0 * cross
         else:
@@ -690,7 +763,7 @@ def _search_adc16_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
         gp = routed.group_part[s:s + group_chunk].long()
         dec = decode_rows(pq, unpack_codes(pcodes[gp], pq.sq_count, 16))  # (ch, pad, dim)
         qs = qslab[s:s + group_chunk]                                     # (ch, G, dim)
-        with _full_f32_matmul():
+        with full_f32_matmul():
             cross = torch.bmm(qs, dec.transpose(1, 2))                    # (ch, G, pad)
         d = ((qs * qs).sum(-1)[..., None] + (dec * dec).sum(-1)[:, None, :]
              - 2.0 * cross)

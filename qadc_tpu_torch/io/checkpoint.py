@@ -1,9 +1,9 @@
-"""Load a flat or IVF checkpoint written by qadc_tpu.io.checkpoint.save_index
-(counterpart of qadc_tpu/io/checkpoint.py; loading only).
+"""Save and load flat and IVF checkpoints (counterpart of
+qadc_tpu/io/checkpoint.py, less its sharded functions).
 
-The format is `arrays.npz` (one entry per field) plus `manifest.json`
-(type and static metadata), so an index built by the JAX package loads
-here unchanged.
+The format is the JAX package's: `arrays.npz` (one entry per field) plus
+`manifest.json` (type and static metadata), so an index built by either
+package loads in the other unchanged.
 """
 
 from __future__ import annotations
@@ -13,16 +13,27 @@ import os
 
 import numpy as np
 
-from qadc_tpu_torch.convert import flat_index_from_arrays, ivf_index_from_arrays
+from qadc_tpu_torch.convert import (FORMAT_VERSION, flat_index_from_arrays, index_to_arrays,
+                                    ivf_index_from_arrays)
+from qadc_tpu_torch.core.tensors import DEFAULT_DEVICE
 from qadc_tpu_torch.index.flat import FlatIndex
 from qadc_tpu_torch.index.ivf import IVFIndex
 
-FORMAT_VERSION = 1
 _LOADERS = {"flat": flat_index_from_arrays, "ivf": ivf_index_from_arrays}
 
 
-def load_index(path: str, device="cpu") -> FlatIndex | IVFIndex:
-    """Load the flat or IVF index saved in directory `path` onto `device`."""
+def save_index(path: str, index: FlatIndex | IVFIndex) -> None:
+    """Save a FlatIndex or IVFIndex to directory `path`."""
+    arrays, manifest = index_to_arrays(index)
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "arrays.npz"), **arrays)
+    with open(os.path.join(path, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
+def load_index(path: str, device=DEFAULT_DEVICE) -> FlatIndex | IVFIndex:
+    """Load the flat or IVF index saved in directory `path` onto `device`
+    (the card unless the caller asks for the CPU)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest["format"] != FORMAT_VERSION:

@@ -45,6 +45,11 @@ SIGNATURES = {
     "qadc_flat_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, tables, out_min, out_idx, n_blocks, q_count, n, m, stream
     "qadc_flat_scan8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
+    # cb, f32, transpose_out, stream
+    "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, n_pad, q_count, n, block_n, window, cb, stream
+    "qadc_flat_scan_window_regs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,7 +1,7 @@
 """The search path's kernels: Hopper CUDA kernels and their plain versions
 (counterpart of qadc_tpu/kernels/lut_scan.py).
 
-Six kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
+Eight kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
 
   grouped_scan  (M1)  <- lut_scan_grouped_tq / lut_scan_grouped_prefetch,
                          int8 tables (Quick ADC) or float32 (4-bit ADC)
@@ -11,6 +11,11 @@ Six kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8 or
                          float32 tables
   flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit)
+  flat_scan_window      (8, 8v, 8w) <- lut_scan_reduce at any (block_n,
+                         window), its accumulate variants, and (through
+                         lut_scan_topk_int8) its screened top-r
+  flat_scan_window_regs (10) <- lut_scan_vpu_reduce: the same minima by
+                         another engine (tables in registers)
 
 Each wrapper checks its arguments, then dispatches on the device of the
 tensors it was given: on the CPU it runs the plain PyTorch version beside
@@ -32,6 +37,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from qadc_tpu_torch.core.layout import code_view
+from qadc_tpu_torch.ops.topk import exact_tile_screen
 
 # Finite sentinel for codes past a partition's size (lut_scan.py:MASK_BIG):
 # it flows through the screen when fewer than wq real candidates exist, and
@@ -48,12 +54,23 @@ SCAN8_SQ_COUNTS = (4, 8, 16)
 # lut_scan8_reduce call: block_n 256, window 16).
 FLAT_SCAN8_SQ_COUNTS = (4, 8, 16, 32)
 FLAT8_BLOCK, FLAT8_WINDOW = 256, 16
+# The JAX package's flat kernel gates (qadc_tpu/kernels/lut_scan.py): codes
+# per scan block, and the window that sets how many candidates a query has.
+DEFAULT_BLOCK_N = 1024
+DEFAULT_WINDOW = 16
+# lut_scan_reduce's accumulate variants. On the TPU they pick how the MXU
+# builds the one-hot pre-image; the Hopper kernel builds none, so all three
+# run flat_scan_window's one kernel.
+SCAN_VARIANTS = ("int8", "int8c", "bf16")
+# Largest code block (block_n * code bytes) the window scans stage in shared
+# memory: 8192 codes of 16 bytes, the JAX package's MAX_BLOCK_N at cb = 16.
+WINDOW_SCAN_MAX_BLOCK_BYTES = 128 * 1024
 
 # Launches of each kernel since the last reset_launch_counts();
 # grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
             "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
-            "flat_scan8": 0}
+            "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -474,6 +491,183 @@ def flat_scan_plain(codes_rows, tables, n: int, with_rows: bool = False):
     if not with_rows:
         return best, None
     return best, torch.where(empty, -1, arg).to(torch.int32)
+
+
+# ---------------------------------------------------------------- 8, 8v, 8w, 10
+
+
+def slots_to_rows(slots: torch.Tensor, block_n: int, cb: int) -> torch.Tensor:
+    """Map window-scan SLOT ids to code ids (the JAX package's slots_to_rows).
+
+    Within each block of block_n codes (R = block_n / cpr storage rows), slot
+    s = c*R + r holds the code at in-block position r*cpr + c. Works on any
+    integer tensor of slot ids (block-local or global).
+    """
+    cpr = 128 // cb
+    r = block_n // cpr
+    s = slots % block_n
+    return slots // block_n * block_n + s % r * cpr + s // r
+
+
+def window_slots(window_ids: torch.Tensor, block_n: int, window: int) -> torch.Tensor:
+    """(..., window) SLOTS of each window id, ascending (the JAX package's
+    window_slots): window g of a block is slots {g, g + G, 2G + g, ...},
+    G = block_n / window. Map them to code ids with slots_to_rows."""
+    g = block_n // window
+    w = torch.arange(window, device=window_ids.device)
+    return (window_ids // g * block_n)[..., None] + w * g + (window_ids % g)[..., None]
+
+
+def _check_window_scan(codes_rows, tables, n, block_n: int, window: int, f32_ok: bool):
+    """Argument checks of the window scans. Returns (cb, n clipped, N_pad)."""
+    dev = codes_rows.device
+    _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
+    f32 = f32_ok and getattr(tables, "dtype", None) == torch.float32
+    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
+    _, m, k = tables.shape
+    if codes_rows.shape[1] != 128 or k != 16 or m not in (16, 32):
+        raise ValueError(f"need (R, 128) codes and (Q, 16|32, 16) tables, got "
+                         f"{tuple(codes_rows.shape)} and {tuple(tables.shape)}")
+    cb = m // 2
+    n_pad = codes_rows.shape[0] * (128 // cb)
+    if block_n < 1 or n_pad % block_n != 0:
+        raise ValueError(f"N_pad {n_pad} not a multiple of block_n {block_n}")
+    if window < 1 or block_n % window != 0:
+        raise ValueError(f"block_n {block_n} not a multiple of window {window}")
+    if block_n % (128 // cb) != 0:
+        raise ValueError(f"block_n {block_n} must hold whole {128 // cb}-code storage rows")
+    if block_n * cb > WINDOW_SCAN_MAX_BLOCK_BYTES:
+        raise ValueError(f"block_n {block_n} x {cb} code bytes exceeds the "
+                         f"{WINDOW_SCAN_MAX_BLOCK_BYTES}-byte block the scan stages")
+    return cb, max(0, min(int(n), n_pad)), n_pad
+
+
+def flat_scan_window(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                     window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                     transpose_out: bool = False, variant: str = "int8"):
+    """Flat 4-bit ADC scan to window minima at any (block_n, window): the
+    whole contract of the JAX package's lut_scan_reduce.
+
+    Args:
+      codes_rows: (N_pad/cpr, 128) uint8 row128 storage, N_pad % block_n == 0.
+      tables: (Q, M, 16) per-query tables, M in (16, 32): int8 with entries
+        in [0, 127] (int32 sums, no 127 saturation), or float32 (summed over
+        b = 0..cb-1, low nibble then high, as rows_adc sums).
+      n: real code count; codes at or past n are padding and enter no minimum.
+      block_n, window: window g of a block of block_n codes holds the codes
+        of slots {g, g + G, ...} (window_slots, slots_to_rows), G = block_n /
+        window; block_n % window == 0.
+      with_rows: also return the code id of each minimum. Ties go to the
+        lowest SLOT (the first in window_slots order), not the lowest code id.
+      transpose_out: minima as (Q, N_pad/W); min-only.
+      variant: one of SCAN_VARIANTS; all run the same kernel.
+
+    Returns:
+      (mins, idx): mins (N_pad/W, Q) int32 or float32, or (Q, N_pad/W) with
+      transpose_out; TRIM_SENTINEL (int32) or +inf (float32) for a window
+      with no real code. idx (N_pad/W, Q) int32 code ids, -1 for such a
+      window; None without with_rows.
+    """
+    if variant not in SCAN_VARIANTS:
+        raise KeyError(variant)
+    if with_rows and transpose_out:
+        raise ValueError("transpose_out supports the min-only variant")
+    cb, n, n_pad = _check_window_scan(codes_rows, tables, n, block_n, window, f32_ok=True)
+    dev = codes_rows.device
+    if dev.type == "cpu":
+        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
+                                      transpose_out)
+    _require_cuda(dev, codes_rows, tables)
+    f32 = tables.dtype == torch.float32
+    q, c = tables.shape[0], n_pad // window
+    out = torch.empty((q, c) if transpose_out else (c, q),
+                      dtype=tables.dtype if f32 else torch.int32, device=dev)
+    idx = torch.empty((c, q), dtype=torch.int32, device=dev) if with_rows else None
+    if q and c:
+        _launch("qadc_flat_scan_window", dev, codes_rows.data_ptr(), tables.data_ptr(),
+                out.data_ptr(), None if idx is None else idx.data_ptr(), n_pad, q, n,
+                block_n, window, cb, int(f32), int(transpose_out))
+        launches["flat_scan_window"] += 1
+    return out, idx
+
+
+def flat_scan_window_plain(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                           window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                           transpose_out: bool = False):
+    """Plain PyTorch version of flat_scan_window (same arguments and result)."""
+    q, m, _ = tables.shape
+    cb = m // 2
+    f32 = tables.dtype == torch.float32
+    acc_dtype = torch.float32 if f32 else torch.int32
+    dev = codes_rows.device
+    codes = codes_rows.reshape(-1, cb)                            # (N_pad, cb)
+    tab = tables.to(acc_dtype)
+    acc = torch.zeros((q, codes.shape[0]), dtype=acc_dtype, device=dev)
+    for b in range(cb):  # rows_adc's order: b = 0..cb-1, low nibble then high
+        byte = codes[:, b].long()
+        acc = acc + tab[:, 2 * b][:, byte & 15]
+        acc = acc + tab[:, 2 * b + 1][:, byte >> 4]
+    code = torch.arange(codes.shape[0], device=dev)
+    none = torch.inf if f32 else torch.iinfo(torch.int32).max
+    acc = torch.where(code < n, acc, none)                       # padded codes
+    members = slots_to_rows(window_slots(torch.arange(codes.shape[0] // window, device=dev),
+                                         block_n, window), block_n, cb)    # (C, W), slot order
+    best, arg = _first_min(acc[:, members], members)             # ties: the lowest slot
+    empty = (members >= n).all(dim=-1)                           # no real code
+    best = torch.where(empty, torch.inf if f32 else TRIM_SENTINEL, best)
+    if transpose_out:
+        return best.contiguous(), None
+    if not with_rows:
+        return best.T.contiguous(), None
+    return best.T.contiguous(), torch.where(empty, -1, arg).to(torch.int32).T.contiguous()
+
+
+def flat_scan_window_regs(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                          window: int = DEFAULT_WINDOW):
+    """flat_scan_window's min-only int8 result by another engine: the same
+    arguments (int8 tables only) and the same (N_pad/W, Q) int32 minima, bit
+    for bit. Each thread keeps one query's tables in registers and looks a
+    nibble up with byte permutes, where flat_scan_window reads shared memory
+    (the counterpart of the JAX package's lut_scan_vpu_reduce: an A/B
+    instrument). Its plain version is flat_scan_window_plain.
+    """
+    cb, n, n_pad = _check_window_scan(codes_rows, tables, n, block_n, window, f32_ok=False)
+    dev = codes_rows.device
+    if dev.type == "cpu":
+        return flat_scan_window_plain(codes_rows, tables, n, block_n, window)[0]
+    _require_cuda(dev, codes_rows, tables)
+    q, c = tables.shape[0], n_pad // window
+    out = torch.empty((c, q), dtype=torch.int32, device=dev)
+    if q and c:
+        _launch("qadc_flat_scan_window_regs", dev, codes_rows.data_ptr(), tables.data_ptr(),
+                out.data_ptr(), n_pad, q, n, block_n, window, cb)
+        launches["flat_scan_window_regs"] += 1
+    return out
+
+
+def lut_scan_topk_int8(codes_rows, qtables, r: int, num_valid: int,
+                       block_n: int = DEFAULT_BLOCK_N, window: int = DEFAULT_WINDOW):
+    """Quick-ADC scan to the r best window candidates (the JAX package's
+    lut_scan_topk_int8): flat_scan_window with argmin ids, then the exact
+    tile screen over each query's window minima.
+
+    Args:
+      codes_rows: (N_pad/cpr, 128) uint8 row128 storage.
+      qtables: (Q, M, 16) int8.
+      r: results per query (at most one per window).
+      num_valid: real code count. Padded codes enter no window minimum, so a
+        window's real codes stay candidates (the JAX version masks a window
+        whose argmin is padding, and with it the window's real codes).
+
+    Returns:
+      (vals (Q, r) float32 quantized distances ascending, +inf for absent
+      slots; ids (Q, r) int32 code ids, each < num_valid where finite).
+    """
+    vals, rows = flat_scan_window(codes_rows, qtables, num_valid, block_n, window,
+                                  with_rows=True)
+    vals_t = torch.where(rows >= 0, vals.to(torch.float32), torch.inf).T
+    out_v, sel = exact_tile_screen(vals_t, min(r, vals_t.shape[1]))
+    return out_v, torch.gather(rows.T, 1, sel.long())
 
 
 # ---------------------------------------------------------------- 9

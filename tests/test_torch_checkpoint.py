@@ -36,7 +36,7 @@ def test_saved_index_loads_with_equal_arrays(tmp_path, kind):
     else:
         jindex, queries = _opq_index()
     save_index(str(tmp_path), jindex)
-    loaded = load_index(str(tmp_path))
+    loaded = load_index(str(tmp_path), device="cpu")
     direct = to_port(jindex)
     arrays, meta = index_arrays(jindex)
     for name in ("codes", "labels", "part_sizes", "coarse_centroids"):
@@ -67,4 +67,4 @@ def test_opq_search_matches_reference():
 def test_load_rejects_other_checkpoints(tmp_path):
     (tmp_path / "manifest.json").write_text('{"format": 1, "type": "ivf_sharded"}')
     with pytest.raises(ValueError):
-        load_index(str(tmp_path))
+        load_index(str(tmp_path), device="cpu")

@@ -5,9 +5,10 @@ run it without the JAX test configuration:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: M1 and flat_scan with int8 tables (int32 sums) bit-exact; the
-float scans (M1 and flat_scan with float tables, grouped_scan8, flat_scan8),
-M2 and M3 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
+Tolerances: M1, flat_scan, flat_scan_window and flat_scan_window_regs with
+int8 tables (int32 sums) bit-exact; the float scans (M1, flat_scan and
+flat_scan_window with float tables, grouped_scan8, flat_scan8), M2 and M3
+rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
 kernels' order, but the card may contract or round differently. MASK_BIG
 placement, trim sentinels and dead windows exact; argmin indices equal
 (flat scans: wherever the minima are equal bit for bit).
@@ -225,3 +226,73 @@ def test_flat_search_on_card_matches_plain(cuda, m, bits):
         (d, l), (pd, pl) = run(lut_scan.DISPATCH), run(lut_scan.PLAIN)
         _close(d.cpu(), pd.cpu())
         assert torch.equal(l.cpu()[:, 0], pl.cpu()[:, 0])
+
+
+# (m, block_n, window): W = cpr; two rows a window; a parity class of a row;
+# W != cpr at 32 sub-quantizers; a block of one storage row.
+WINDOW_SHAPES = [(16, 1024, 16), (32, 1024, 16), (16, 512, 8), (32, 512, 8), (16, 2048, 64),
+                 (32, 8, 2)]
+
+
+def _window_inputs(m, block_n, f32, q=37, blocks=5, seed=500):
+    g = np.random.default_rng(seed + m + block_n)
+    codes = torch.from_numpy(g.integers(0, 256, (blocks * block_n * m // 256, 128),
+                                        dtype=np.uint8))
+    if f32:
+        tables = torch.from_numpy(g.random((q, m, 16)).astype(np.float32))
+    else:  # few distinct entries: many ties inside a window
+        tables = torch.from_numpy(g.integers(0, 4, (q, m, 16)).astype(np.int8))
+    return codes, tables, blocks * block_n - block_n // 2 - 3   # padding inside a block
+
+
+@pytest.mark.parametrize("m,block_n,window", WINDOW_SHAPES)
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("mode", ["min", "rows", "transposed"])
+def test_flat_scan_window_matches_plain(cuda, m, block_n, window, f32, mode):
+    codes, tables, n = _window_inputs(m, block_n, f32)
+    kw = dict(with_rows=mode == "rows", transpose_out=mode == "transposed")
+    want_v, want_i = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window, **kw)
+    before = lut_scan.launches["flat_scan_window"]
+    got_v, got_i = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n,
+                                             window, **kw)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan_window"] == before + 1
+    _same_minima(got_v.cpu(), want_v, f32)
+    if mode == "rows":
+        same = got_v.cpu() == want_v
+        assert same.float().mean() > 0.99
+        assert torch.equal(got_i.cpu()[same], want_i[same])     # ties: the lowest slot
+    else:
+        assert got_i is None and want_i is None
+
+
+@pytest.mark.parametrize("m,block_n,window", WINDOW_SHAPES)
+@pytest.mark.parametrize("q", [37, 130])   # a partial warp; a second block of queries
+def test_flat_scan_window_regs_matches_plain(cuda, m, block_n, window, q):
+    codes, tables, n = _window_inputs(m, block_n, False, q=q)
+    want, _ = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window)
+    before = lut_scan.launches["flat_scan_window_regs"]
+    got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), n, block_n, window)
+    same_kernel, _ = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n,
+                                               window)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan_window_regs"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, same_kernel)
+
+
+def test_flat_scan_window_regs_takes_negative_entries(cuda):
+    """int8 entries are sign-extended by both engines, as the plain version does."""
+    g = np.random.default_rng(9)
+    codes = torch.from_numpy(g.integers(0, 256, (128, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.integers(-128, 128, (33, 16, 16)).astype(np.int8))
+    want, _ = lut_scan.flat_scan_window_plain(codes, tables, 2048, 1024, 16)
+    got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), 2048, 1024, 16)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lut_scan_topk_int8_on_card_matches_plain(cuda):
+    codes, tables, n = _window_inputs(16, 1024, False, q=9, blocks=8)
+    want_v, want_i = lut_scan.lut_scan_topk_int8(codes, tables, 50, n, 1024, 16)
+    got_v, got_i = lut_scan.lut_scan_topk_int8(codes.to(cuda), tables.to(cuda), 50, n, 1024, 16)
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)

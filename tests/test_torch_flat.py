@@ -261,7 +261,7 @@ def test_opq_index_matches_reference():
 def test_saved_flat_index_loads(tmp_path):
     jindex = _jax_index()
     save_index(str(tmp_path), jindex)
-    loaded = load_index(str(tmp_path))
+    loaded = load_index(str(tmp_path), device="cpu")
     assert isinstance(loaded, flat.FlatIndex) and loaded.n == jindex.n
     np.testing.assert_array_equal(loaded.codes.numpy(), np.asarray(jindex.codes))
     np.testing.assert_array_equal(loaded.pq.centroids.numpy(), np.asarray(jindex.pq.centroids))

@@ -287,7 +287,7 @@ def test_wide_checkpoints_load_and_search(tmp_path, bits):
     jindex = trained8_index()[0] if bits == 8 else trained16_index()[0]
     queries = trained8_index()[2] if bits == 8 else trained16_index()[1]
     save_index(str(tmp_path), jindex)
-    loaded = load_index(str(tmp_path))
+    loaded = load_index(str(tmp_path), device="cpu")
     assert loaded.pq.sq_bits == bits
     arrays, _ = index_arrays(jindex)
     np.testing.assert_array_equal(as_np(loaded.codes), arrays["codes"])
