@@ -13,12 +13,16 @@ PQ, 8x8 PQ and 8x16 PQ) and the reference's flat SIFT1M size (1M codes
 padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
 
   1. kernel phases: each kernel against its plain PyTorch version on the
-     card, at the shapes the search gives it (M1 at b=128's routed groups,
+     card, at the shapes the search gives it (M1 at b=32's and b=128's
+     routed groups, by the tensor-core kernel and by the lookup kernel;
      M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs; M1
      with float tables and grouped_scan8 at search_adc's b=32 groups on the
      16x4 and 8x8 indexes; flat_scan with int8 tables, with and without
-     argmin rows, and with float tables over the 1M flat 16x4 codes at
-     b=128, and flat_scan8 over the flat 8x8 codes at b=32);
+     argmin rows, by the warpgroup kernel at b=128, the mma.sync kernel at
+     b=32 and the lookup kernel at both, and with float tables over the 1M
+     flat 16x4 codes at b=128, and flat_scan8 over the flat 8x8 codes at b=32).
+     The tensor-core kernels are also held to scan_onehot_plain, their own
+     arithmetic in PyTorch, exactly;
   2. search phases, each with the launch counts reset just before and read
      just after, and every kernel of its path required to have launched:
      ivf.search_qadc at b=1 (direct path), b=32 and b=128 (grouped path),
@@ -47,7 +51,12 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      min-only, transposed, with argmin ids and with float tables, and at
      (block 512, W 8); flat_scan_window_regs against flat_scan_window, exact;
      lut_scan_topk_int8 r=100 against the exact scan; the same over a 32x4
-     index (W 16 != cpr 8), and the three scans' device times side by side.
+     index (W 16 != cpr 8), and the four scans' device times side by side;
+  6. the scan lab (qadc_tpu_torch/kernels/scan_lab.py) over the same trained
+     codes at b=128: the four engines of one scan equal bit for bit, every
+     lab mode launched and timed, the exactness probe (0 mismatches
+     required) and the float32 selector sum against float64 (1e-6), printed
+     as one `scan_lab` line.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -105,11 +114,16 @@ PATH_KERNELS = {
     "trained_ivf_qadc_norerank": ("grouped_scan", "rows_adc"),
     "trained_flat_qadc": ("flat_scan", "rows_adc"),
     "window_scan": ("flat_scan_window", "flat_scan_window_regs"),
+    "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
+                 "flat_scan_window", "flat_scan_window_regs"),
 }
+# The int8 lookup kernels are A/B instruments: no search path may launch them.
+LOOKUP_ONLY = ("grouped_scan_lookup", "flat_scan_lookup")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
-           "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan"}
+           "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
+           "flat_scan_lookup": "flat_qadc", "scan_lab": "scan_lab", "selector_sum": "scan_lab"}
 # The trained phase (bench.py:_bench_recall_parity): sizes, the keep of the
 # reference's -k 0.213 (% of N; per partition here), and the recall floors:
 # the JAX package's 1M record (0.9063 / 0.9844 / 0.9141) less 0.035 for 128
@@ -158,10 +172,16 @@ def device_ms(torch, fn, kernel: str | None = None, reps: int = REPS) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
+    total = sum(e.self_device_time_total for e in events)
     check(total > 0, f"profiler saw no device time ({kernel or 'all'})")
-    return total / reps / 1e3
+    if kernel is None:
+        return total / reps / 1e3
+    # A named kernel: the mean over the launches the profiler recorded (on a
+    # busy host it drops some), times the launches one call makes.
+    count = sum(e.count for e in events)
+    return total / count * max(1, round(count / reps)) / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -231,7 +251,7 @@ def main() -> int:
     from qadc_tpu_torch.index import flat, ivf
     from qadc_tpu_torch.index.routing import route_queries
     from qadc_tpu_torch.io.checkpoint import load_index, save_index
-    from qadc_tpu_torch.kernels import build, lut_scan
+    from qadc_tpu_torch.kernels import build, lut_scan, scan_lab
     from qadc_tpu_torch.kernels.scan_ref import adc_scan_int8, scan_topk_int8
     from qadc_tpu_torch.ops.knn import assign_nearest
     from qadc_tpu_torch.quantizers.opq import train_opq
@@ -267,29 +287,40 @@ def main() -> int:
     kernels = {}
 
     def kernel_phase(name, cu_name, source, replaces, kernel_fn, plain_fn, compare,
-                     in_bytes, ops, peak):
+                     in_bytes, ops, peak, library_fn=None):
         """Hold a kernel to its plain version, time both, and bound it:
         in_bytes are the input bytes the function must read (the outputs'
-        are added here), ops its additions, peak their peak rate."""
-        got, want = kernel_fn(), plain_fn()
+        are added here), ops its additions, peak their peak rate. A lab mode
+        whose output nothing defines has no plain_fn: its error and plain
+        times are null. library_fn: the one PyTorch call that computes the
+        same function, where there is one (no such call computes a LUT scan)."""
+        got = kernel_fn()
         torch.cuda.synchronize()
-        err = compare(got, want)
-        del want
+        err = plain_ms = plain_call_ms = None
+        if plain_fn is not None:
+            want = plain_fn()
+            torch.cuda.synchronize()
+            err = compare(got, want)
+            del want
         # ms: device time (the kernel alone; all of the plain version's
         # kernels); call_ms: CUDA events around one call, host work included.
         ms = device_ms(torch, kernel_fn, cu_name)
-        plain_ms = device_ms(torch, plain_fn, reps=PLAIN_REPS)
         call_ms = time_ms(torch, kernel_fn)[0]
-        plain_call_ms = time_ms(torch, plain_fn, PLAIN_REPS)[0]
+        if plain_fn is not None:
+            plain_ms = device_ms(torch, plain_fn, reps=PLAIN_REPS)
+            plain_call_ms = time_ms(torch, plain_fn, PLAIN_REPS)[0]
+        library_ms = None if library_fn is None else device_ms(torch, library_fn)
         least, by = bound_ms(in_bytes + nbytes(got), ops, peak)
         kernels[name] = {"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
-                         "library_ms": None,  # no one PyTorch call computes a LUT scan
+                         "library_ms": library_ms,
                          "call_ms": call_ms, "plain_call_ms": plain_call_ms}
-        print(f"kernel {name}: max_abs_err={err:.3g} device ms={ms:.4f} (plain {plain_ms:.4f}; "
-              f"bound {least:.4f} by {by}) call ms={call_ms:.4f} (plain {plain_call_ms:.4f}) "
-              f"[{card}]", flush=True)
+        check(ms >= least, f"kernel {name}: {ms} ms is below its bound {least}")
+        fmt = lambda x: "none" if x is None else f"{x:.4g}"  # noqa: E731
+        print(f"kernel {name}: max_abs_err={fmt(err)} device ms={ms:.4f} (plain {fmt(plain_ms)}; "
+              f"bound {least:.4f} by {by}; library {fmt(library_ms)}) call ms={call_ms:.4f} "
+              f"(plain {fmt(plain_call_ms)}) [{card}]", flush=True)
 
     qb = queries[128]
     parts, tables, qtables, (tlo, thi) = ivf._quantized_tables(
@@ -311,11 +342,27 @@ def main() -> int:
         check(torch.equal(got, want), "grouped_scan differs from its plain version")
         return 0.0
 
-    kernel_phase("grouped_scan", "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu",
-                 "qadc_tpu/kernels/lut_scan.py:857",
-                 lambda: lut_scan.grouped_scan(*m1_args),
-                 lambda: lut_scan.grouped_scan_plain(*m1_args), exact_int,
-                 *grouped_work(index, parts, m1_args[1], m1_args[2:]), PEAK_INT8)
+    # M1 at the routed groups of b=128 (the name the main path counts) and
+    # b=32, by the tensor-core kernel and by the lookup kernel it replaced.
+    q32 = queries[32]
+    parts32, _, qtables32, _ = ivf._quantized_tables(index, q32, R, MA, KEEP, prefix_pad,
+                                                     lut_scan.DISPATCH)
+    routed32 = route_queries(parts32, index.part_count, 128)
+    m1_args32 = (index.codes, qtables32.reshape(q32.shape[0] * MA, 16, 16), routed32.group_part,
+                 routed32.slot_pairs(), ivf._group_sizes(index, routed32))
+    for tag, args, probes in (("", m1_args, parts), ("[b=32]", m1_args32, parts32)):
+        check(torch.equal(lut_scan.grouped_scan(*args), lut_scan.grouped_scan_onehot_plain(*args)),
+              f"grouped_scan{tag} differs from its one-hot plain version")
+        for name, fn, cu_name, src in (
+            ("grouped_scan", lut_scan.grouped_scan, "grouped_scan_mma_kernel", "scan_mma.cu"),
+            ("grouped_scan_lookup", lut_scan.grouped_scan_lookup, "grouped_scan_kernel",
+             "grouped_scan.cu"),
+        ):
+            kernel_phase(name + tag, cu_name, f"qadc_tpu_torch/csrc/{src}",
+                         "qadc_tpu/kernels/lut_scan.py:857",
+                         lambda fn=fn, args=args: fn(*args),
+                         lambda args=args: lut_scan.grouped_scan_plain(*args), exact_int,
+                         *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
 
     rpp = index.codes.shape[1]
     ppr = -(-prefix_pad // index.cpr)
@@ -438,15 +485,38 @@ def main() -> int:
         peak = PEAK_INT8 if tables_.dtype == torch.int8 else PEAK_F32
         return nbytes(codes, tables_), tables_.shape[0] * n * tables_.shape[1], peak
 
-    for name, args, compare, replaces in (
-        ("flat_scan", (fi4.codes, fqt, fi4.n), flat_rows_exact, 522),
-        ("flat_scan[with_rows]", (fi4.codes, fqt, fi4.n, True), flat_rows_exact, 281),
-        ("flat_scan_f32", (fi4.codes, ft4, fi4.n),
+    for got, want in zip(lut_scan.flat_scan(fi4.codes, fqt, fi4.n, True),
+                         lut_scan.scan_onehot_plain(fi4.codes, fqt, fi4.n, True)):
+        check(torch.equal(got, want), "flat_scan differs from its one-hot plain version")
+    del got, want
+    # At 128 queries flat_scan's int8 kernel is the warpgroup one, at 32 the
+    # mma.sync one (lut_scan.WGMMA_MIN_QUERIES); flat_scan_lookup is the kernel
+    # both replaced.
+    fqt32 = fqt[:32].contiguous()
+    check(fqt.shape[0] >= lut_scan.WGMMA_MIN_QUERIES > fqt32.shape[0], "flat_scan kernel choice")
+    check(torch.equal(lut_scan.flat_scan(fi4.codes, fqt32, fi4.n)[0],
+                      lut_scan.flat_scan_lookup(fi4.codes, fqt32, fi4.n)[0]),
+          "flat_scan[b=32] differs from flat_scan_lookup")
+    wgmma = ("flat_scan_wgmma_kernel", "scan_wgmma.cu")
+    mma, lookup = ("flat_scan_mma_kernel", "scan_mma.cu"), ("flat_scan_kernel", "flat_scan.cu")
+    for name, fn, (cu_name, src), args, compare, replaces in (
+        ("flat_scan", lut_scan.flat_scan, wgmma, (fi4.codes, fqt, fi4.n), flat_rows_exact, 522),
+        ("flat_scan[with_rows]", lut_scan.flat_scan, wgmma, (fi4.codes, fqt, fi4.n, True),
+         flat_rows_exact, 281),
+        ("flat_scan[b=32]", lut_scan.flat_scan, mma, (fi4.codes, fqt32, fi4.n), flat_rows_exact,
+         522),
+        ("flat_scan_lookup[b=32]", lut_scan.flat_scan_lookup, lookup, (fi4.codes, fqt32, fi4.n),
+         flat_rows_exact, 522),
+        ("flat_scan_lookup", lut_scan.flat_scan_lookup, lookup, (fi4.codes, fqt, fi4.n),
+         flat_rows_exact, 522),
+        ("flat_scan_lookup[with_rows]", lut_scan.flat_scan_lookup, lookup,
+         (fi4.codes, fqt, fi4.n, True), flat_rows_exact, 281),
+        ("flat_scan_f32", lut_scan.flat_scan, lookup, (fi4.codes, ft4, fi4.n),
          lambda got, want: inf_float_err(torch, got[0], want[0], "flat_scan_f32"), 522),
     ):
-        kernel_phase(name, "flat_scan_kernel", "qadc_tpu_torch/csrc/flat_scan.cu",
+        kernel_phase(name, cu_name, f"qadc_tpu_torch/csrc/{src}",
                      f"qadc_tpu/kernels/lut_scan.py:{replaces}",
-                     lambda a=args: lut_scan.flat_scan(*a),
+                     lambda fn=fn, a=args: fn(*a),
                      lambda a=args: lut_scan.flat_scan_plain(*a), compare,
                      *flat_work(*args[:3]))
     kernel_phase("flat_scan8", "flat_scan8_kernel", "qadc_tpu_torch/csrc/flat_scan8.cu",
@@ -467,6 +537,8 @@ def main() -> int:
     print(f"main path launches: {launches['qadc']}", flush=True)
     for name in PATH_KERNELS["qadc"]:
         check(launches["qadc"][name] > 0, f"kernel {name} was not launched by the main path")
+    for name in LOOKUP_ONLY:
+        check(launches["qadc"][name] == 0, f"the main path launched {name}")
 
     for b in BATCHES:
         d, lab = results[b]
@@ -506,6 +578,8 @@ def main() -> int:
         print(f"{path} launches: {launches[path]}", flush=True)
         for name in PATH_KERNELS[path]:
             check(launches[path][name] > 0, f"kernel {name} was not launched by {path}")
+        for name in LOOKUP_ONLY:  # A/B instruments: only the lab may launch them
+            check(path == "scan_lab" or launches[path][name] == 0, f"{path} launched {name}")
         return out
 
     def check_vs_plain(path, b, got, plain):
@@ -568,6 +642,8 @@ def main() -> int:
         b = FLAT_BATCH[path]
         bits = 4 if path == "flat_qadc" else int(path[len("flat_adc"):])
         d, lab = got = drive(path, run)
+        if path == "flat_qadc":  # one scan a search, by the tensor-core kernel
+            check(launches[path]["flat_scan"] == 1, "flat_qadc: flat_scan launches")
         plain_overlap = check_vs_plain(path, b, got, run(lut_scan.PLAIN))
         od, ol = want = flat_oracle(torch, flat_indexes[bits], fq[b], unpack_codes)
         if path == "flat_qadc":  # int8 screen: the oracle's top-1 in the top-R
@@ -772,14 +848,48 @@ def main() -> int:
         print(f"window path {tag}: lut_scan_topk_int8 r={R} values exact, ids < n, top-1 equal "
               f"to the exact scan; flat_scan_window_regs' best window equal", flush=True)
 
-    ab = {k: kernels[k]["ms"] for k in ("flat_scan_window[b1024 w16]",
-                                        "flat_scan_window_regs[b1024 w16]")}
-    flat_now = device_ms(torch, lambda: lut_scan.flat_scan(fw.codes, wqt, fw.n),
-                         "flat_scan_kernel")
-    print(f"A/B b=128 x {fw.n_pad} trained 16x4 codes, device ms: flat_scan (W = cpr, "
-          f"transposed) {flat_now:.4f}; flat_scan_window (block 1024, W 16) "
-          f"{ab['flat_scan_window[b1024 w16]']:.4f}; flat_scan_window_regs "
-          f"{ab['flat_scan_window_regs[b1024 w16]']:.4f} [{card}]", flush=True)
+    # ---- 6. the scan lab over the trained flat 16x4 codes, b=128 ---------------
+    lab_out = drive("scan_lab", lambda: scan_lab.check(fw.codes, wqt, fw.n))
+    mismatches = sum(sum(v.values()) for v in lab_out["exactness"].values())
+    check(mismatches == 0, f"exactness probe: {lab_out['exactness']}")
+    check(lab_out["selector_sum_max_rel_err"] < 1e-6,
+          f"selector sum rel err {lab_out['selector_sum_max_rel_err']}")
+    lab_src = "qadc_tpu_torch/csrc/scan_lab.cu"
+    wg_src = "qadc_tpu_torch/csrc/scan_wgmma.cu"
+    lab_replaces = {"ab_tq_ablate": "benchmarks/ab_tq_ablate.py:121",
+                    "kernel_lab": "benchmarks/kernel_lab.py:70"}
+    for mode, (bits, mt, asks) in scan_lab.LAB_MODES.items():
+        # The scan's minima, or copy's sentinel: the other modes define nothing.
+        defined = bits == 7 or (bits == 0 and mt > 0)
+        moved = nbytes(wqt) + (nbytes(fw.codes) if bits & 1 or (bits == 0 and mt) else 0)
+        kernel_phase(f"scan_lab[{mode}]", "mma_kernel", lab_src if mt else wg_src,
+                     lab_replaces[asks.split(".")[0]],
+                     lambda mode=mode: scan_lab.scan_lab(fw.codes, wqt, fw.n, mode),
+                     (lambda mode=mode: scan_lab.scan_lab_plain(fw.codes, wqt, fw.n, mode))
+                     if defined else None,
+                     exact_int,
+                     moved, wqt.shape[0] * fw.n * 16 if bits & 2 else 0, PEAK_INT8)
+    gen = torch.Generator(device=device).manual_seed(11)
+    sel_x = torch.rand((512, 128), generator=gen, device=device) * 500
+    sel = (torch.arange(128, device=device)[:, None] // 8
+           == torch.arange(16, device=device)[None, :]).to(torch.float32)
+    kernel_phase("selector_sum", "selector_sum_kernel", lab_src, "benchmarks/diag_direct.py:51",
+                 lambda: scan_lab.selector_sum(sel_x, 8),
+                 lambda: scan_lab.selector_sum_plain(sel_x, 8),
+                 lambda got, want: float_err(torch, got, want, "selector_sum"),
+                 nbytes(sel_x), 512 * 128, PEAK_F32, library_fn=lambda: torch.matmul(sel_x, sel))
+    ab_ms = {name: device_ms(torch, fn, scan_lab.AB_KERNELS[name])
+             for name, fn in scan_lab.ab_scans(fw.codes, wqt, fw.n).items()}
+    print(f"A/B b=128 x {fw.n_pad} trained 16x4 codes, device ms: flat_scan (int8 one-hot x "
+          f"table wgmma) {ab_ms['flat_scan']:.4f}; by mma.sync "
+          f"{kernels['scan_lab[full]']['ms']:.4f}; flat_scan_lookup {ab_ms['flat_scan_lookup']:.4f}; "
+          f"flat_scan_window (block 1024, W 16, transposed) {ab_ms['flat_scan_window']:.4f}; "
+          f"flat_scan_window_regs {ab_ms['flat_scan_window_regs']:.4f} [{card}]", flush=True)
+    print(json.dumps({"scan_lab": {
+        "shape": f"b={wqt.shape[0]} x {fw.n_pad} trained 16x4 codes", "ab_ms": ab_ms,
+        "mode_ms": {mode: kernels[f"scan_lab[{mode}]"]["ms"] for mode in scan_lab.LAB_MODES},
+        "asks": {mode: v[2] for mode, v in scan_lab.LAB_MODES.items()},
+        "selector_sum_ms": kernels["selector_sum"]["ms"], **lab_out}, "card": card}), flush=True)
 
     # The launch count of each kernel phase comes from the path that runs it.
     line = {"kernels": []}

@@ -50,6 +50,18 @@ SIGNATURES = {
     "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, n_pad, q_count, n, block_n, window, cb, stream
     "qadc_flat_scan_window_regs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, stream
+    "qadc_flat_scan_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qadc_flat_scan_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),  # as qadc_flat_scan_mma
+    # codes, tables, group_part, slot_pair, group_sizes, out,
+    # gcap, group_size, rpp, cb, stream
+    "qadc_grouped_scan_mma": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # codes, tables, out, r_count, q_count, n, mode, mt, stream
+    "qadc_scan_lab": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, r_count, q_count, n, mode, stream
+    "qadc_scan_lab_wgmma": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, cb, stream
+    "qadc_selector_sum": (_P, _P, _I, _I, _P),
 }
 
 

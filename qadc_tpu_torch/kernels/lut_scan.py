@@ -1,15 +1,21 @@
 """The search path's kernels: Hopper CUDA kernels and their plain versions
 (counterpart of qadc_tpu/kernels/lut_scan.py).
 
-Eight kernels, written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
+Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
 
   grouped_scan  (M1)  <- lut_scan_grouped_tq / lut_scan_grouped_prefetch,
-                         int8 tables (Quick ADC) or float32 (4-bit ADC)
+                         int8 tables (Quick ADC: the tensor-core kernel of
+                         scan_mma.cu) or float32 (4-bit ADC: the lookup
+                         kernel of grouped_scan.cu)
   grouped_scan8 (5+6) <- lut_scan8_grouped_tq / lut_scan8_grouped_prefetch
   rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul)
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
-  flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8 or
-                         float32 tables
+  flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
+                         tables (scan_wgmma.cu from WGMMA_MIN_QUERIES
+                         queries, scan_mma.cu below) or float32 (flat_scan.cu)
+  grouped_scan_lookup, flat_scan_lookup: the int8 scans by the lookup
+                         kernels (one shared-memory lookup a nibble), kept
+                         for the A/B against the tensor-core kernels
   flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit)
   flat_scan_window      (8, 8v, 8w) <- lut_scan_reduce at any (block_n,
                          window), its accumulate variants, and (through
@@ -66,11 +72,23 @@ SCAN_VARIANTS = ("int8", "int8c", "bf16")
 # memory: 8192 codes of 16 bytes, the JAX package's MAX_BLOCK_N at cb = 16.
 WINDOW_SCAN_MAX_BLOCK_BYTES = 128 * 1024
 
+# Fewest queries at which flat_scan's int8 kernel is the warpgroup one
+# (csrc/scan_wgmma.cu, whose time does not fall below 128 queries) and not the
+# mma.sync one (csrc/scan_mma.cu, whose time follows the query count). The
+# crossover measured on an NVIDIA H100 80GB HBM3, 700.00 W, over 1M 16x4 codes
+# (scripts/torch_scan_lab.py), ms by mma.sync / wgmma: 32 queries 0.038 / 0.067,
+# 48: 0.066 / 0.067, 64: 0.074 / 0.067, 128: 0.134 / 0.069.
+WGMMA_MIN_QUERIES = 48
+
 # Launches of each kernel since the last reset_launch_counts();
-# grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables.
+# grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables,
+# grouped_scan_lookup and flat_scan_lookup the int8 scans by the lookup
+# kernels, scan_lab and selector_sum the instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
             "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
-            "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0}
+            "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0,
+            "grouped_scan_lookup": 0, "flat_scan_lookup": 0, "scan_lab": 0,
+            "selector_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -178,23 +196,52 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
       saturation); TRIM_SENTINEL (int32) or +inf (float32) for rows at or
       past ceil(size / cpr).
     """
-    dev = codes.device
+    f32 = _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=True)
+    if codes.device.type == "cpu":
+        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
+                                "grouped_scan_f32" if f32 else "grouped_scan")
+
+
+def grouped_scan_lookup(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan's int8 result by the lookup kernel (grouped_scan.cu): the
+    same arguments (int8 tables only) and the same minima, bit for bit. An
+    A/B instrument: no search path calls it."""
+    _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=False)
+    if codes.device.type == "cpu":
+        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
+                                "grouped_scan_lookup")
+
+
+def _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok: bool) -> bool:
+    """Argument checks of M1. Returns whether the tables are float32."""
     _check_groups(codes, group_part, slot_pair, group_sizes)
-    f32 = getattr(tables, "dtype", None) == torch.float32
-    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
-    qa, m, k = tables.shape
+    f32 = f32_ok and getattr(tables, "dtype", None) == torch.float32
+    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, codes.device)
+    _, m, k = tables.shape
     if k != 16 or m not in (16, 32):
         raise ValueError(f"need (QA, 16|32, 16) tables, got {tuple(tables.shape)}")
-    if dev.type == "cpu":
-        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+    return f32
+
+
+def _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, kernel: str):
+    """Launch M1 on checked CUDA tensors. `kernel` is its key in `launches`:
+    grouped_scan runs the tensor-core kernel, the other two the lookup kernel."""
+    dev = codes.device
     _require_cuda(dev, codes, tables)
+    qa, m, _ = tables.shape
     gcap, g = slot_pair.shape
     rpp = codes.shape[1]
+    f32 = kernel == "grouped_scan_f32"
     out = torch.empty((qa, rpp), dtype=tables.dtype if f32 else torch.int32, device=dev)
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, out)]
-        _launch("qadc_grouped_scan", dev, *ptrs, gcap, g, rpp, m // 2, int(f32))
-        launches["grouped_scan_f32" if f32 else "grouped_scan"] += 1
+        if kernel == "grouped_scan":
+            _launch("qadc_grouped_scan_mma", dev, *ptrs, gcap, g, rpp, m // 2)
+        else:
+            _launch("qadc_grouped_scan", dev, *ptrs, gcap, g, rpp, m // 2, int(f32))
+        launches[kernel] += 1
     return out
 
 
@@ -443,26 +490,57 @@ def flat_scan(codes_rows, tables, n: int, with_rows: bool = False):
       (ties to the lower code, -1 for a row with no real code), or None
       without with_rows.
     """
+    f32, n = _check_flat_scan(codes_rows, tables, n, f32_ok=True)
+    if codes_rows.device.type == "cpu":
+        return flat_scan_plain(codes_rows, tables, n, with_rows)
+    return _launch_flat_scan(codes_rows, tables, n, with_rows,
+                             "flat_scan_f32" if f32 else "flat_scan")
+
+
+def flat_scan_lookup(codes_rows, tables, n: int, with_rows: bool = False):
+    """flat_scan's int8 result by the lookup kernel (flat_scan.cu): the same
+    arguments (int8 tables only) and the same minima and indices, bit for
+    bit. An A/B instrument: no search path calls it."""
+    _, n = _check_flat_scan(codes_rows, tables, n, f32_ok=False)
+    if codes_rows.device.type == "cpu":
+        return flat_scan_plain(codes_rows, tables, n, with_rows)
+    return _launch_flat_scan(codes_rows, tables, n, with_rows, "flat_scan_lookup")
+
+
+def _check_flat_scan(codes_rows, tables, n, f32_ok: bool) -> tuple[bool, int]:
+    """Argument checks of flat_scan. Returns (float32 tables, n clipped)."""
     dev = codes_rows.device
     _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
-    f32 = getattr(tables, "dtype", None) == torch.float32
+    f32 = f32_ok and getattr(tables, "dtype", None) == torch.float32
     _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
-    q, m, k = tables.shape
+    _, m, k = tables.shape
     if codes_rows.shape[1] != 128 or k != 16 or m not in (16, 32):
         raise ValueError(f"need (R, 128) codes and (Q, 16|32, 16) tables, got "
                          f"{tuple(codes_rows.shape)} and {tuple(tables.shape)}")
-    r_count = codes_rows.shape[0]
-    n = max(0, min(int(n), r_count * (256 // m)))
-    if dev.type == "cpu":
-        return flat_scan_plain(codes_rows, tables, n, with_rows)
+    return f32, max(0, min(int(n), codes_rows.shape[0] * (256 // m)))
+
+
+def _launch_flat_scan(codes_rows, tables, n: int, with_rows: bool, kernel: str):
+    """Launch flat_scan on checked CUDA tensors. `kernel` is its key in
+    `launches`: flat_scan runs a tensor-core kernel, chosen by the batch
+    (with_rows too: they take the minimum of (sum << 4) | code_in_row), the
+    other two the lookup kernel."""
+    dev = codes_rows.device
     _require_cuda(dev, codes_rows, tables)
+    q, m, _ = tables.shape
+    r_count = codes_rows.shape[0]
+    f32 = kernel == "flat_scan_f32"
     out = torch.empty((q, r_count), dtype=tables.dtype if f32 else torch.int32, device=dev)
     idx = torch.empty((q, r_count), dtype=torch.int32, device=dev) if with_rows else None
     if q and r_count:
-        _launch("qadc_flat_scan", dev, codes_rows.data_ptr(), tables.data_ptr(),
-                out.data_ptr(), None if idx is None else idx.data_ptr(), r_count, q, n,
-                m // 2, int(f32))
-        launches["flat_scan_f32" if f32 else "flat_scan"] += 1
+        ptrs = (codes_rows.data_ptr(), tables.data_ptr(), out.data_ptr(),
+                None if idx is None else idx.data_ptr())
+        if kernel == "flat_scan":
+            entry = "qadc_flat_scan_wgmma" if q >= WGMMA_MIN_QUERIES else "qadc_flat_scan_mma"
+            _launch(entry, dev, *ptrs, r_count, q, n, m // 2)
+        else:
+            _launch("qadc_flat_scan", dev, *ptrs, r_count, q, n, m // 2, int(f32))
+        launches[kernel] += 1
     return out, idx
 
 
@@ -491,6 +569,71 @@ def flat_scan_plain(codes_rows, tables, n: int, with_rows: bool = False):
     if not with_rows:
         return best, None
     return best, torch.where(empty, -1, arg).to(torch.int32)
+
+
+def scan_onehot_plain(codes_rows, tables, n: int, with_rows: bool = False,
+                      chunk_rows: int = 4096):
+    """flat_scan's int8 function in the tensor-core kernel's own arithmetic
+    (csrc/scan_mma.cuh): the same arguments and result as flat_scan_plain.
+
+    Every code becomes a 0/1 one-hot column of 32*cb entries (k = 32*b +
+    nibble for the low nibble of code byte b, 32*b + 16 + nibble for the
+    high one); a query's (M, 16) int8 tables are one row in the same k order,
+    and the sums are their product. The product runs as a float32 matmul of
+    integers below 2**24, which is exact in any order and runs on every
+    device, and is cast to int32. A storage row's 16 bytes at offset 16*g
+    are column g of its 8-code tiles (position g*tiles + tile in the row);
+    minima are taken per tile, then over the row's tiles. With rows the
+    minimum is taken over (sum << 4) | position, which carries the lowest
+    tied code. Used by the tests and chip_smoke.py, by no search path.
+    """
+    q, m, _ = tables.shape
+    cb = m // 2
+    cpr = 128 // cb
+    tiles = cpr // 8
+    r_count = codes_rows.shape[0]
+    n = max(0, min(int(n), r_count * cpr))
+    dev = codes_rows.device
+    a = tables.reshape(q, 16 * m).to(torch.float32)                  # (Q, 32*cb)
+    k0 = 32 * torch.arange(cb, device=dev)                          # k of (byte b, entry 0)
+    pos = (torch.arange(8, device=dev)[:, None] * tiles
+           + torch.arange(tiles, device=dev)[None, :])[None, :, :, None]  # (1, 8, tiles, 1)
+    none = torch.iinfo(torch.int32).max
+    out = torch.empty((q, r_count), dtype=torch.int32, device=dev)
+    idx = torch.empty((q, r_count), dtype=torch.int32, device=dev) if with_rows else None
+    for r0 in range(0, r_count, chunk_rows):
+        byte = codes_rows[r0:r0 + chunk_rows].reshape(-1, 8, tiles, cb).long()   # (C, g, tile, b)
+        c = byte.shape[0]
+        onehot = torch.zeros((c, 8, tiles, 32 * cb), dtype=torch.int8, device=dev)
+        onehot.scatter_(3, k0 + (byte & 15), 1)
+        onehot.scatter_(3, k0 + 16 + (byte >> 4), 1)
+        sums = (onehot.reshape(-1, 32 * cb).to(torch.float32) @ a.T).to(torch.int32)
+        x = sums.reshape(c, 8, tiles, q)
+        if with_rows:
+            x = (x << 4) | pos.to(torch.int32)
+        row = r0 + torch.arange(c, device=dev)
+        real = (n - row * cpr)[:, None, None, None]                  # real codes of each row
+        x = torch.where(pos < real, x, none)                        # padded codes
+        best = x.amin(dim=1).amin(dim=1)                             # tile minima, then the row's
+        empty = (row * cpr >= n)[:, None]
+        if with_rows:
+            idx[:, r0:r0 + c] = torch.where(empty, -1, row[:, None] * cpr + (best & 15)).T
+            best = best >> 4
+        out[:, r0:r0 + c] = torch.where(empty, TRIM_SENTINEL, best).T
+    return out, idx
+
+
+def grouped_scan_onehot_plain(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan's int8 function by scan_onehot_plain, a group at a time
+    (same arguments and result as grouped_scan_plain)."""
+    out = torch.full((tables.shape[0], codes.shape[1]), TRIM_SENTINEL, dtype=torch.int32,
+                     device=codes.device)
+    for g, (part, size) in enumerate(zip(group_part.tolist(), group_sizes.tolist())):
+        pairs = slot_pair[g]
+        pairs = pairs[pairs >= 0].long()
+        if pairs.numel():
+            out[pairs] = scan_onehot_plain(codes[part], tables[pairs], size)[0]
+    return out
 
 
 # ---------------------------------------------------------------- 8, 8v, 8w, 10

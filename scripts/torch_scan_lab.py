@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""The scan lab on one CUDA card: where the time of the 4-bit int8 scans goes.
+
+    python3 scripts/torch_scan_lab.py      # one CUDA card, about 40 s
+
+The counterpart of the JAX package's scratch scripts benchmarks/ab_tq.py,
+ab_tq_ablate.py, kernel_lab.py and diag_direct.py, for the tensor-core scans
+of qadc_tpu_torch/csrc/scan_mma.cu and scan_wgmma.cu (see qadc_tpu_torch/kernels/scan_lab.py
+for the table of modes). Over 1,000,448 seeded random 16x4 codes and 128
+queries' int8 tables it prints, in device milliseconds (torch.profiler,
+100 launches each):
+
+  A/B      flat_scan (int8 one-hot x table product: wgmma at this batch)
+           against flat_scan_lookup (shared-memory lookups), flat_scan_window
+           and flat_scan_window_regs (tables in registers), after checking
+           that all four give the same minima bit for bit;
+  sweep    flat_scan by its wgmma kernel and by its mma.sync kernel at 8 to
+           128 queries: the crossover behind lut_scan.WGMMA_MIN_QUERIES;
+  modes    the mma.sync scan with parts removed: full, const_onehot, no_mma,
+           no_min, copy, expand_only, acc_only, min_only, and full with 32
+           or 16 queries a warp;
+  exact    mismatches of the mma scan against the lookup scan over
+           adversarial tables (all 127, all 0, one-hot rows, random) at 16
+           and 32 sub-quantizers, and the float32 selector sum's largest
+           relative error against float64;
+  M1       grouped_scan against grouped_scan_lookup at the routed groups of
+           32 and 128 queries x 24 probes over the seeded IVF-256 index.
+
+The last two lines are one JSON object {"scan_lab": ...} and the card's name
+and power limit. It exits non-zero without a card or on any disagreement.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from qadc_tpu_torch.convert import ivf_index_from_arrays  # noqa: E402
+from qadc_tpu_torch.eval.synth import bench_ivf_arrays  # noqa: E402
+from qadc_tpu_torch.index import ivf  # noqa: E402
+from qadc_tpu_torch.index.routing import route_queries  # noqa: E402
+from qadc_tpu_torch.kernels import lut_scan, scan_lab  # noqa: E402
+
+N_PAD, N, Q, MA, REPS = 1_000_448, 1_000_000, 128, 24, 100
+
+
+def device_ms(fn, kernel: str, reps: int = REPS) -> float:
+    """Device milliseconds of the named kernel in one call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in events)
+    if count <= 0:
+        raise RuntimeError(f"the profiler saw no launch of {kernel}")
+    # The mean over the launches the profiler recorded: on a busy host it drops some.
+    return sum(e.self_device_time_total for e in events) / count / 1e3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(0)
+    codes = torch.from_numpy(rng.integers(0, 256, (N_PAD // 16, 128), dtype=np.uint8)).to(dev)
+    tables = torch.from_numpy(rng.integers(0, 128, (Q, 16, 16)).astype(np.int8)).to(dev)
+
+    print(f"modes: {json.dumps({k: v[2] for k, v in scan_lab.LAB_MODES.items()})}")
+    out = scan_lab.run(codes, tables, N, device_ms)
+    print(f"A/B b={Q} x {N_PAD} codes, device ms: {out['ab_ms']} [{card}]", flush=True)
+    print(f"modes, device ms: {out['mode_ms']} [{card}]", flush=True)
+    print(f"exactness (mismatches against the lookup kernel): {out['exactness']}; "
+          f"selector sum max rel err {out['selector_sum_max_rel_err']:.3g}", flush=True)
+    bad = sum(sum(v.values()) for v in out["exactness"].values())
+    if bad or out["selector_sum_max_rel_err"] >= 1e-6:
+        print("the exactness probe failed", file=sys.stderr)
+        return 1
+
+    # The crossover of flat_scan's two int8 kernels: each forced at every batch.
+    out["crossover_ms"] = {}
+    floor = lut_scan.WGMMA_MIN_QUERIES
+    try:
+        for q in (8, 16, 32, 48, 64, 96, Q):
+            part = tables[:q].contiguous()
+            row = {}
+            for name, forced in (("wgmma", 1), ("mma_sync", 1 << 30)):
+                lut_scan.WGMMA_MIN_QUERIES = forced
+                row[name] = device_ms(lambda: lut_scan.flat_scan(codes, part, N), "mma_kernel")
+            out["crossover_ms"][f"b{q}"] = row
+    finally:
+        lut_scan.WGMMA_MIN_QUERIES = floor
+    print(f"flat_scan by kernel and batch, device ms: {out['crossover_ms']} (the wrapper takes "
+          f"wgmma from {floor} queries) [{card}]", flush=True)
+
+    arrays, manifest = bench_ivf_arrays(rng)
+    index = ivf_index_from_arrays(arrays, manifest, dev)
+    out["m1_ms"] = {}
+    for b in (32, Q):
+        queries = torch.from_numpy(rng.normal(size=(b, 128)).astype(np.float32)).to(dev)
+        parts, _ = ivf.assign_queries(index, queries, MA)
+        routed = route_queries(parts, index.part_count, 128)
+        qt = torch.from_numpy(rng.integers(0, 128, (b * MA, 16, 16)).astype(np.int8)).to(dev)
+        args = (index.codes, qt, routed.group_part, routed.slot_pairs(),
+                ivf._group_sizes(index, routed))
+        if not torch.equal(lut_scan.grouped_scan(*args), lut_scan.grouped_scan_lookup(*args)):
+            print(f"M1 b={b}: the mma kernel differs from the lookup kernel", file=sys.stderr)
+            return 1
+        out["m1_ms"][f"b{b}"] = {
+            "grouped_scan": device_ms(lambda: lut_scan.grouped_scan(*args),
+                                      "grouped_scan_mma_kernel"),
+            "grouped_scan_lookup": device_ms(lambda: lut_scan.grouped_scan_lookup(*args),
+                                             "grouped_scan_kernel")}
+    print(f"M1 routed groups, device ms: {out['m1_ms']} [{card}]", flush=True)
+    print(json.dumps({"scan_lab": out, "card": card}))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,8 @@ run it without the JAX test configuration:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: M1, flat_scan, flat_scan_window and flat_scan_window_regs with
+Tolerances: M1, flat_scan (the tensor-core kernels and their _lookup twins),
+flat_scan_window and flat_scan_window_regs with
 int8 tables (int32 sums) bit-exact; the float scans (M1, flat_scan and
 flat_scan_window with float tables, grouped_scan8, flat_scan8), M2 and M3
 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
@@ -23,7 +24,7 @@ from qadc_tpu_torch.eval.synth import (bench_flat_arrays, bench_ivf8_arrays,
                                        bench_ivf16_arrays, bench_ivf_arrays)
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.routing import route_queries
-from qadc_tpu_torch.kernels import lut_scan
+from qadc_tpu_torch.kernels import lut_scan, scan_lab
 
 
 @pytest.fixture
@@ -296,3 +297,164 @@ def test_lut_scan_topk_int8_on_card_matches_plain(cuda):
     want_v, want_i = lut_scan.lut_scan_topk_int8(codes, tables, 50, n, 1024, 16)
     got_v, got_i = lut_scan.lut_scan_topk_int8(codes.to(cuda), tables.to(cuda), 50, n, 1024, 16)
     assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+# ---- the tensor-core int8 scans (csrc/scan_mma.cu), their lookup twins, the lab
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("q", [1, 5, 17, 128, 130])   # partial m-tiles; a third query group
+@pytest.mark.parametrize("n_kind", ["mid_row", "zero", "all", "one"])
+def test_flat_scan_mma_matches_plain(cuda, m, q, n_kind):
+    g = np.random.default_rng(600 + m + q)
+    cpr = 256 // m
+    r_count = 301                                  # ragged: a partial quad of rows
+    codes = torch.from_numpy(g.integers(0, 256, (r_count, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.integers(0, 6, (q, m, 16)).astype(np.int8))   # ties in a row
+    n = {"mid_row": r_count * cpr - 5 * cpr - 3, "zero": 0, "all": r_count * cpr, "one": 1}[n_kind]
+    want_v, want_i = lut_scan.flat_scan_plain(codes, tables, n, True)
+    hot_v, hot_i = lut_scan.scan_onehot_plain(codes, tables, n, True)
+    dc, dt = codes.to(cuda), tables.to(cuda)
+    before = dict(lut_scan.launches)
+    got_v, got_i = lut_scan.flat_scan(dc, dt, n, True)
+    mins, none = lut_scan.flat_scan(dc, dt, n)
+    look_v, look_i = lut_scan.flat_scan_lookup(dc, dt, n, True)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan"] == before["flat_scan"] + 2
+    assert lut_scan.launches["flat_scan_lookup"] == before["flat_scan_lookup"] + 1
+    assert none is None
+    for v, i in ((got_v, got_i), (look_v, look_i)):
+        assert torch.equal(v.cpu(), want_v) and torch.equal(i.cpu(), want_i)
+    assert torch.equal(mins.cpu(), want_v)
+    assert torch.equal(hot_v, want_v) and torch.equal(hot_i, want_i)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("group_size", [4, 16, 128])
+@pytest.mark.parametrize("q", [1, 9, 40])      # 40 x 4 pairs: more than 16 live slots a group
+def test_grouped_scan_mma_matches_plain(cuda, m, group_size, q):
+    g = np.random.default_rng(700 + m + group_size + q)
+    cpr = 256 // m
+    rpp, ma = 50, 4
+    sizes = torch.tensor([0, 1, 17, rpp * cpr, 277, 600], dtype=torch.int32)
+    codes = torch.from_numpy(g.integers(0, 256, (6, rpp, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.integers(0, 128, (q * ma, m, 16)).astype(np.int8))
+    pids = torch.from_numpy(g.integers(0, 6, (q, ma)).astype(np.int32))
+    routed = route_queries(pids, 6, group_size=group_size)
+    g_sz = torch.where(routed.group_valid, sizes[routed.group_part.long()], 0).to(torch.int32)
+    args = [codes, tables, routed.group_part, routed.slot_pairs(), g_sz]
+    want = lut_scan.grouped_scan_plain(*args)
+    dargs = [a.to(cuda) for a in args]
+    before = dict(lut_scan.launches)
+    got = lut_scan.grouped_scan(*dargs)
+    look = lut_scan.grouped_scan_lookup(*dargs)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["grouped_scan"] == before["grouped_scan"] + 1
+    assert lut_scan.launches["grouped_scan_lookup"] == before["grouped_scan_lookup"] + 1
+    assert torch.equal(got.cpu(), want) and torch.equal(look.cpu(), want)
+    assert torch.equal(lut_scan.grouped_scan_onehot_plain(*args), want)
+
+
+def test_grouped_scan_mma_one_live_slot_of_128(cuda):
+    g = np.random.default_rng(8)
+    codes = torch.from_numpy(g.integers(0, 256, (2, 20, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.integers(0, 128, (3, 16, 16)).astype(np.int8))
+    slot_pair = torch.full((2, 128), -1, dtype=torch.int32)
+    slot_pair[1, 77] = 2
+    args = [codes, tables, torch.tensor([0, 1], dtype=torch.int32), slot_pair,
+            torch.tensor([320, 277], dtype=torch.int32)]
+    want = lut_scan.grouped_scan_plain(*args)
+    got = lut_scan.grouped_scan(*[a.to(cuda) for a in args]).cpu()
+    assert torch.equal(got[2], want[2])            # rows 0 and 1 belong to no slot: unwritten
+
+
+def test_grouped_scan_mma_group_larger_than_a_slot_chunk(cuda):
+    """2000 slots a group: two gathers of 1024 slots, 80 live."""
+    g = np.random.default_rng(10)
+    codes = torch.from_numpy(g.integers(0, 256, (1, 9, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.integers(0, 128, (80, 16, 16)).astype(np.int8))
+    slot_pair = torch.full((1, 2000), -1, dtype=torch.int32)
+    slot_pair[0, torch.from_numpy(g.permutation(2000)[:80])] = torch.arange(80, dtype=torch.int32)
+    args = [codes, tables, torch.zeros(1, dtype=torch.int32), slot_pair,
+            torch.tensor([9 * 16 - 5], dtype=torch.int32)]
+    want = lut_scan.grouped_scan_plain(*args)
+    assert torch.equal(lut_scan.grouped_scan(*[a.to(cuda) for a in args]).cpu(), want)
+
+
+@pytest.mark.parametrize("mode", list(scan_lab.LAB_MODES))
+def test_scan_lab_mode_launches(cuda, mode):
+    g = np.random.default_rng(11)
+    codes = torch.from_numpy(g.integers(0, 256, (301, 128), dtype=np.uint8)).to(cuda)
+    tables = torch.from_numpy(g.integers(0, 128, (130, 16, 16)).astype(np.int8)).to(cuda)
+    n = 301 * 16 - 21
+    before = lut_scan.launches["scan_lab"]
+    got = scan_lab.scan_lab(codes, tables, n, mode)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["scan_lab"] == before + 1
+    assert got.shape == (130, 301) and got.dtype == torch.int32
+    bits, mt, _ = scan_lab.LAB_MODES[mode]
+    if bits == 7:
+        assert torch.equal(got, lut_scan.flat_scan_lookup(codes, tables, n)[0])
+    if bits == 0 and mt:
+        assert (got[:, :300] == lut_scan.TRIM_SENTINEL).all()
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("q", [40, 48, 64, 129, 300])   # either side of the kernel choice
+def test_flat_scan_kernel_choice_matches_lookup(cuda, m, q):
+    """flat_scan's int8 kernel is mma.sync below lut_scan.WGMMA_MIN_QUERIES and
+    wgmma from there on (several query groups at 129 and 300): both equal the
+    lookup kernel over many tiles, with and without rows."""
+    g = np.random.default_rng(800 + m + q)
+    cpr = 256 // m
+    r_count = 2051                               # many 128-code tiles, the last one partial
+    codes = torch.from_numpy(g.integers(0, 256, (r_count, 128), dtype=np.uint8)).to(cuda)
+    tables = torch.from_numpy(g.integers(0, 128, (q, m, 16)).astype(np.int8)).to(cuda)
+    n = r_count * cpr - 3 * cpr - 1
+    for with_rows in (False, True):
+        got = lut_scan.flat_scan(codes, tables, n, with_rows)
+        want = lut_scan.flat_scan_lookup(codes, tables, n, with_rows)
+        assert torch.equal(got[0], want[0])
+        assert with_rows is False or torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_exactness_probe_on_card(cuda, m):
+    g = np.random.default_rng(12)
+    codes = torch.from_numpy(g.integers(0, 256, (640, 128), dtype=np.uint8)).to(cuda)
+    bad = scan_lab.exactness_probe(codes, 640 * 256 // m - 9, m, q=130)
+    assert bad == {"all_127": 0, "all_0": 0, "one_hot_rows": 0, "random": 0}
+    tables = scan_lab.adversarial_tables(m, 4, 0, cuda)["all_127"]
+    assert (lut_scan.flat_scan(codes, tables, 640 * 256 // m)[0] == 127 * m).all()
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+def test_selector_sum_holds_float64(cuda, cb):
+    x = torch.from_numpy(np.random.default_rng(11).uniform(0, 500, (512, 128)).astype(np.float32))
+    before = lut_scan.launches["selector_sum"]
+    got = scan_lab.selector_sum(x.to(cuda), cb).cpu().double()
+    assert lut_scan.launches["selector_sum"] == before + 1
+    want = x.double().reshape(512, 128 // cb, cb).sum(-1)
+    assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
+
+
+def test_ab_engines_agree(cuda):
+    g = np.random.default_rng(13)
+    codes = torch.from_numpy(g.integers(0, 256, (640, 128), dtype=np.uint8)).to(cuda)
+    tables = torch.from_numpy(g.integers(0, 128, (37, 16, 16)).astype(np.int8)).to(cuda)
+    outs = {name: fn() for name, fn in scan_lab.ab_scans(codes, tables, 640 * 16 - 40).items()}
+    for name, out in outs.items():
+        assert torch.equal(out, outs["flat_scan_lookup"]), name
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("q,r_count", [(64, 3), (1000, 130), (48, 1)])
+def test_flat_scan_wgmma_small_and_wide(cuda, m, q, r_count):
+    """The warpgroup kernel on less than one tile of rows, and on eight query groups."""
+    g = np.random.default_rng(900 + m + q)
+    codes = torch.from_numpy(g.integers(0, 256, (r_count, 128), dtype=np.uint8)).to(cuda)
+    tables = torch.from_numpy(g.integers(0, 128, (q, m, 16)).astype(np.int8)).to(cuda)
+    n = r_count * (256 // m) - 1
+    got = lut_scan.flat_scan(codes, tables, n, True)
+    want = lut_scan.flat_scan_lookup(codes, tables, n, True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -29,7 +29,7 @@ def test_port_has_the_mirrored_modules():
                 "index/flat.py", "io/checkpoint.py", "ops/knn.py", "ops/tables.py",
                 "ops/quantization.py", "ops/topk.py", "kernels/lut_scan.py", "kernels/scan_ref.py",
                 "eval/recall.py", "eval/synth.py", "convert.py", "core/tensors.py",
-                "ops/kmeans.py", "index/build.py", "kernels/build.py"):
+                "ops/kmeans.py", "index/build.py", "kernels/build.py", "kernels/scan_lab.py"):
         assert rel in names, rel
 
 
