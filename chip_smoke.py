@@ -20,7 +20,10 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      16x4 and 8x8 indexes; flat_scan with int8 tables, with and without
      argmin rows, by the warpgroup kernel at b=128, the mma.sync kernel at
      b=32 and the lookup kernel at both, and with float tables over the 1M
-     flat 16x4 codes at b=128, and flat_scan8 over the flat 8x8 codes at b=32).
+     flat 16x4 codes at b=128, and flat_scan8 over the flat 8x8 codes at b=32:
+     both by their query-minor kernels, held with torch.equal to the kernels
+     they replaced (flat_scan_f32_lookup, flat_scan8_lookup, timed beside
+     them) and to their own walk in PyTorch (the _query_minor_plain versions)).
      The tensor-core kernels are also held to scan_onehot_plain, their own
      arithmetic in PyTorch, exactly;
   2. search phases, each with the launch counts reset just before and read
@@ -55,13 +58,18 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
   6. the scan lab (qadc_tpu_torch/kernels/scan_lab.py) over the same trained
      codes at b=128: the four engines of one scan equal bit for bit, every
      lab mode launched and timed, the exactness probe (0 mismatches
-     required) and the float32 selector sum against float64 (1e-6), printed
-     as one `scan_lab` line.
+     required) and the float32 selector sum against float64 (1e-6); the
+     query-minor scans at every chunk of queries and with parts removed, and
+     an empty kernel (the device time of a launch); printed as one
+     `scan_lab` line.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
 3.35 TB/s and its additions over the peak for their type (int8 tables: 1,979
 TOP/s; float sums: 67 TFLOP/s), counted from this run's inputs.
+
+Every kernel row carries the launches torch.profiler recorded for its mean
+(`profiled_launches`); a row that recorded none fails the run.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The line before the last is the card's name and power limit as nvidia-smi
@@ -83,8 +91,9 @@ R, MA, KEEP = 100, 24, 0.005
 BATCHES = (1, 32, 128)
 ADC_BATCH = 32           # search_adc's phases (bench.py's adc4_b32 / adc8_b32)
 # Timed runs per measurement: 100 leave ten samples beyond the p90. A plain
-# version (tens of ms at the flat shapes) is timed over PLAIN_REPS runs.
-REPS, PLAIN_REPS, WARMUP = 100, 10, 3
+# version (tens of ms at the flat shapes) is timed over PLAIN_REPS runs, an A/B
+# arm of a replaced flat kernel over ARM_REPS.
+REPS, PLAIN_REPS, ARM_REPS, WARMUP = 100, 10, 30, 3
 # Published peaks of one H100 SXM: HBM bytes/s, int8 and float32 operations/s.
 PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
 # M2/M3 float sums: rtol 1e-6, atol 1e-5 * max|plain| (same sum order, but
@@ -115,15 +124,19 @@ PATH_KERNELS = {
     "trained_flat_qadc": ("flat_scan", "rows_adc"),
     "window_scan": ("flat_scan_window", "flat_scan_window_regs"),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
-                 "flat_scan_window", "flat_scan_window_regs"),
+                 "flat_scan_window", "flat_scan_window_regs", "flat_scan_f32_lookup",
+                 "flat_scan8_lookup", "empty_kernel"),
 }
-# The int8 lookup kernels are A/B instruments: no search path may launch them.
-LOOKUP_ONLY = ("grouped_scan_lookup", "flat_scan_lookup")
+# The replaced kernels are A/B instruments: no search path may launch them.
+LOOKUP_ONLY = ("grouped_scan_lookup", "flat_scan_lookup", "flat_scan_f32_lookup",
+               "flat_scan8_lookup")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
            "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
-           "flat_scan_lookup": "flat_qadc", "scan_lab": "scan_lab", "selector_sum": "scan_lab"}
+           "flat_scan_lookup": "flat_qadc", "flat_scan_f32_lookup": "flat_adc4",
+           "flat_scan8_lookup": "flat_adc8", "scan_lab": "scan_lab", "selector_sum": "scan_lab",
+           "empty_kernel": "scan_lab"}
 # The trained phase (bench.py:_bench_recall_parity): sizes, the keep of the
 # reference's -k 0.213 (% of N; per partition here), and the recall floors:
 # the JAX package's 1M record (0.9063 / 0.9844 / 0.9141) less 0.035 for 128
@@ -163,25 +176,34 @@ def time_ms(torch, fn, reps: int = REPS) -> tuple[float, float]:
 def device_ms(torch, fn, kernel: str | None = None, reps: int = REPS) -> float:
     """Device milliseconds of one call from torch.profiler's CUDA events:
     the named kernel's time, or all of the call's kernels and copies."""
+    return profiled(torch, fn, kernel, reps)[0]
+
+
+def profiled(torch, fn, kernel: str | None = None, reps: int = REPS) -> tuple[float, int]:
+    """(device milliseconds of one call, kernel launches the profiler
+    recorded in `reps` calls): device_ms and the count behind its mean."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):  # on a busy host a whole window can come back empty: take it again
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
-    total = sum(e.self_device_time_total for e in events)
-    check(total > 0, f"profiler saw no device time ({kernel or 'all'})")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key)]
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0:
+            break
+    check(total > 0, f"profiler saw no device time in three windows ({kernel or 'all'})")
+    count = sum(e.count for e in events)
     if kernel is None:
-        return total / reps / 1e3
+        return total / reps / 1e3, count
     # A named kernel: the mean over the launches the profiler recorded (on a
     # busy host it drops some), times the launches one call makes.
-    count = sum(e.count for e in events)
-    return total / count * max(1, round(count / reps)) / 1e3
+    return total / count * max(1, round(count / reps)) / 1e3, count
 
 
 def nbytes(*tensors) -> int:
@@ -287,7 +309,7 @@ def main() -> int:
     kernels = {}
 
     def kernel_phase(name, cu_name, source, replaces, kernel_fn, plain_fn, compare,
-                     in_bytes, ops, peak, library_fn=None):
+                     in_bytes, ops, peak, library_fn=None, reps=REPS):
         """Hold a kernel to its plain version, time both, and bound it:
         in_bytes are the input bytes the function must read (the outputs'
         are added here), ops its additions, peak their peak rate. A lab mode
@@ -304,8 +326,9 @@ def main() -> int:
             del want
         # ms: device time (the kernel alone; all of the plain version's
         # kernels); call_ms: CUDA events around one call, host work included.
-        ms = device_ms(torch, kernel_fn, cu_name)
-        call_ms = time_ms(torch, kernel_fn)[0]
+        ms, recorded = profiled(torch, kernel_fn, cu_name, reps)
+        check(recorded > 0, f"kernel {name}: the profiler recorded no launch of {cu_name}")
+        call_ms = time_ms(torch, kernel_fn, reps)[0]
         if plain_fn is not None:
             plain_ms = device_ms(torch, plain_fn, reps=PLAIN_REPS)
             plain_call_ms = time_ms(torch, plain_fn, PLAIN_REPS)[0]
@@ -314,11 +337,12 @@ def main() -> int:
         kernels[name] = {"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
-                         "library_ms": library_ms,
+                         "library_ms": library_ms, "profiled_launches": recorded,
                          "call_ms": call_ms, "plain_call_ms": plain_call_ms}
         check(ms >= least, f"kernel {name}: {ms} ms is below its bound {least}")
         fmt = lambda x: "none" if x is None else f"{x:.4g}"  # noqa: E731
-        print(f"kernel {name}: max_abs_err={fmt(err)} device ms={ms:.4f} (plain {fmt(plain_ms)}; "
+        print(f"kernel {name}: max_abs_err={fmt(err)} device ms={ms:.4f} over {recorded} recorded "
+              f"launches (plain {fmt(plain_ms)}; "
               f"bound {least:.4f} by {by}; library {fmt(library_ms)}) call ms={call_ms:.4f} "
               f"(plain {fmt(plain_call_ms)}) [{card}]", flush=True)
 
@@ -497,8 +521,29 @@ def main() -> int:
     check(torch.equal(lut_scan.flat_scan(fi4.codes, fqt32, fi4.n)[0],
                       lut_scan.flat_scan_lookup(fi4.codes, fqt32, fi4.n)[0]),
           "flat_scan[b=32] differs from flat_scan_lookup")
+    # With float tables at 128 queries and for flat_scan8 at 32 the kernels are
+    # the query-minor ones; each equals the kernel it replaced and its own
+    # walk in PyTorch bit for bit, minima and argmin ids.
+    check(ft4.shape[0] >= lut_scan.QUERY_MINOR_MIN_QUERIES
+          and ft8.shape[0] >= lut_scan.QUERY_MINOR_MIN_QUERIES8, "query-minor kernel choice")
+    got4 = lut_scan.flat_scan(fi4.codes, ft4, fi4.n, True)
+    got8 = lut_scan.flat_scan8(fi8.codes, ft8, fi8.n)
+    for what, got, others in (
+        ("flat_scan_f32", got4, (lut_scan.flat_scan_f32_lookup(fi4.codes, ft4, fi4.n, True),
+                                 lut_scan.flat_scan_query_minor_plain(fi4.codes, ft4, fi4.n, True))),
+        ("flat_scan8", got8, (lut_scan.flat_scan8_lookup(fi8.codes, ft8, fi8.n),
+                              lut_scan.flat_scan8_query_minor_plain(fi8.codes, ft8, fi8.n))),
+    ):
+        for other, want in zip(("the kernel it replaced", "its query-minor plain version"), others):
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"{what} differs from {other}")
+    check(torch.equal(lut_scan.flat_scan(fi4.codes, ft4, fi4.n)[0], got4[0]),
+          "flat_scan_f32 minima differ with and without rows")
+    del got4, got8, got, others, want
     wgmma = ("flat_scan_wgmma_kernel", "scan_wgmma.cu")
     mma, lookup = ("flat_scan_mma_kernel", "scan_mma.cu"), ("flat_scan_kernel", "flat_scan.cu")
+    query_minor = ("flat_scan_qm_kernel", "flat_scan_qm.cuh")
+    f32_err = lambda got, want: inf_float_err(torch, got[0], want[0], "flat_scan_f32")  # noqa: E731
     for name, fn, (cu_name, src), args, compare, replaces in (
         ("flat_scan", lut_scan.flat_scan, wgmma, (fi4.codes, fqt, fi4.n), flat_rows_exact, 522),
         ("flat_scan[with_rows]", lut_scan.flat_scan, wgmma, (fi4.codes, fqt, fi4.n, True),
@@ -511,19 +556,26 @@ def main() -> int:
          flat_rows_exact, 522),
         ("flat_scan_lookup[with_rows]", lut_scan.flat_scan_lookup, lookup,
          (fi4.codes, fqt, fi4.n, True), flat_rows_exact, 281),
-        ("flat_scan_f32", lut_scan.flat_scan, lookup, (fi4.codes, ft4, fi4.n),
-         lambda got, want: inf_float_err(torch, got[0], want[0], "flat_scan_f32"), 522),
+        ("flat_scan_f32", lut_scan.flat_scan, query_minor, (fi4.codes, ft4, fi4.n), f32_err, 522),
+        ("flat_scan_f32_lookup", lut_scan.flat_scan_f32_lookup, lookup, (fi4.codes, ft4, fi4.n),
+         f32_err, 522),
     ):
         kernel_phase(name, cu_name, f"qadc_tpu_torch/csrc/{src}",
                      f"qadc_tpu/kernels/lut_scan.py:{replaces}",
                      lambda fn=fn, a=args: fn(*a),
                      lambda a=args: lut_scan.flat_scan_plain(*a), compare,
-                     *flat_work(*args[:3]))
-    kernel_phase("flat_scan8", "flat_scan8_kernel", "qadc_tpu_torch/csrc/flat_scan8.cu",
-                 "qadc_tpu/kernels/lut_scan.py:1601",
-                 lambda: lut_scan.flat_scan8(fi8.codes, ft8, fi8.n),
-                 lambda: lut_scan.flat_scan8_plain(fi8.codes, ft8, fi8.n),
-                 argmin_err("flat_scan8"), *flat_work(fi8.codes, ft8, fi8.n))
+                     *flat_work(*args[:3]),
+                     reps=ARM_REPS if name == "flat_scan_f32_lookup" else REPS)
+    for name, fn, cu_name, src in (
+        ("flat_scan8", lut_scan.flat_scan8, "flat_scan8_qm_kernel", "flat_scan8_qm.cuh"),
+        ("flat_scan8_lookup", lut_scan.flat_scan8_lookup, "flat_scan8_kernel", "flat_scan8.cu"),
+    ):
+        kernel_phase(name, cu_name, f"qadc_tpu_torch/csrc/{src}",
+                     "qadc_tpu/kernels/lut_scan.py:1601",
+                     lambda fn=fn: fn(fi8.codes, ft8, fi8.n),
+                     lambda: lut_scan.flat_scan8_plain(fi8.codes, ft8, fi8.n),
+                     argmin_err(name), *flat_work(fi8.codes, ft8, fi8.n),
+                     reps=ARM_REPS if name == "flat_scan8_lookup" else REPS)
 
     # ---- 2. the main path, through the kernels -----------------------------
     def search(b, kernels_=lut_scan.DISPATCH):
@@ -642,8 +694,10 @@ def main() -> int:
         b = FLAT_BATCH[path]
         bits = 4 if path == "flat_qadc" else int(path[len("flat_adc"):])
         d, lab = got = drive(path, run)
-        if path == "flat_qadc":  # one scan a search, by the tensor-core kernel
-            check(launches[path]["flat_scan"] == 1, "flat_qadc: flat_scan launches")
+        # One scan a search: by the tensor-core kernel (flat_qadc), by the
+        # query-minor kernels (flat_adc4, flat_adc8: batches at or over their thresholds).
+        for scan in PATH_KERNELS[path]:
+            check(scan == "rows_adc" or launches[path][scan] == 1, f"{path}: {scan} launches")
         plain_overlap = check_vs_plain(path, b, got, run(lut_scan.PLAIN))
         od, ol = want = flat_oracle(torch, flat_indexes[bits], fq[b], unpack_codes)
         if path == "flat_qadc":  # int8 screen: the oracle's top-1 in the top-R
@@ -849,7 +903,14 @@ def main() -> int:
               f"to the exact scan; flat_scan_window_regs' best window equal", flush=True)
 
     # ---- 6. the scan lab over the trained flat 16x4 codes, b=128 ---------------
-    lab_out = drive("scan_lab", lambda: scan_lab.check(fw.codes, wqt, fw.n))
+    # The query-minor scans' lab takes the same codes as 8x8 codes too (8 bytes a code).
+    wt8 = ivf.adc_tables(tq[:32], trained["flat_8x8"].pq.centroids).to(torch.bfloat16)
+
+    def lab_checks():
+        scan_lab.check_query_minor(fw.codes, wft, wt8, fw.n)
+        return scan_lab.check(fw.codes, wqt, fw.n)
+
+    lab_out = drive("scan_lab", lab_checks)
     mismatches = sum(sum(v.values()) for v in lab_out["exactness"].values())
     check(mismatches == 0, f"exactness probe: {lab_out['exactness']}")
     check(lab_out["selector_sum_max_rel_err"] < 1e-6,
@@ -869,6 +930,19 @@ def main() -> int:
                      if defined else None,
                      exact_int,
                      moved, wqt.shape[0] * fw.n * 16 if bits & 2 else 0, PEAK_INT8)
+    qm_src = "qadc_tpu_torch/csrc/scan_lab_qm.cu"
+    qm_kernels = {"f32": "flat_scan_qm_kernel", "u8": "flat_scan8_qm_kernel",
+                  "u8_lookup": "flat_scan8_kernel"}
+    for mode, (scan, number, _) in scan_lab.QM_LAB_MODES.items():
+        tab = wft if scan == "f32" else wt8
+        moved, adds, peak = flat_work(fw.codes, tab, fw.n)
+        kernel_phase(f"scan_lab[{mode}]", qm_kernels[scan],
+                     "qadc_tpu_torch/csrc/flat_scan8.cu" if scan == "u8_lookup" else qm_src,
+                     f"qadc_tpu/kernels/lut_scan.py:{522 if scan == 'f32' else 1601}",
+                     lambda mode=mode, tab=tab: scan_lab.query_minor_lab(fw.codes, tab, fw.n, mode),
+                     None, None, moved, 0 if number == 1 else adds, peak)
+    kernel_phase("empty_kernel", "empty_kernel", qm_src, "benchmarks/kernel_lab.py:70",
+                 lambda: scan_lab.empty_kernel(device), None, None, 0, 0, PEAK_F32)
     gen = torch.Generator(device=device).manual_seed(11)
     sel_x = torch.rand((512, 128), generator=gen, device=device) * 500
     sel = (torch.arange(128, device=device)[:, None] // 8
@@ -889,6 +963,10 @@ def main() -> int:
         "shape": f"b={wqt.shape[0]} x {fw.n_pad} trained 16x4 codes", "ab_ms": ab_ms,
         "mode_ms": {mode: kernels[f"scan_lab[{mode}]"]["ms"] for mode in scan_lab.LAB_MODES},
         "asks": {mode: v[2] for mode, v in scan_lab.LAB_MODES.items()},
+        "query_minor_mode_ms": {mode: kernels[f"scan_lab[{mode}]"]["ms"]
+                                for mode in scan_lab.QM_LAB_MODES},
+        "query_minor_asks": {mode: v[2] for mode, v in scan_lab.QM_LAB_MODES.items()},
+        "launch_floor_ms": kernels["empty_kernel"]["ms"],
         "selector_sum_ms": kernels["selector_sum"]["ms"], **lab_out}, "card": card}), flush=True)
 
     # The launch count of each kernel phase comes from the path that runs it.

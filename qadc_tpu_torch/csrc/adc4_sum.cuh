@@ -1,5 +1,6 @@
 // The 4-bit ADC sum of one code, shared by the 4-bit scans (grouped_scan.cu,
-// flat_scan.cu, flat_scan_window.cu) so that the float sum order has a single definition: over
+// flat_scan.cu, flat_scan_window.cu, flat_scan_qm.cuh) so that the float sum order has a single
+// definition: over
 // code bytes b = 0..CB-1, the even sub-quantizer's entry (low nibble), then
 // the odd one's (high nibble). That is rows_adc's order (rows_adc.cu), so a
 // float minimum of a scan is bit for bit the rerank's distance of its code.
@@ -74,6 +75,72 @@ __device__ __forceinline__ typename Acc<T>::type adc4_code_sum(const uint32_t (&
     acc += t[(2 * b + 1) * 16 + (byte >> 4)];   // odd sub-quantizer: high nibble
   }
   return acc;
+}
+
+// ---- the query-minor variant: a code is warp-uniform, a lane is QPL queries ----
+//
+// Tables lie in shared memory as [2*CB][16][32 * QPL] float32 (sub-quantizer,
+// centroid, query), at a shared address aligned to 16 entries' bytes, so an
+// entry's offset can be OR-ed into a lane's address. lane_addr is that base
+// plus the lane's QPL * 4 * lane bytes: the 32 lanes of a warp read one
+// entry's 32 * QPL consecutive floats, whatever the code byte, with no bank
+// conflict. The sum runs in adc4_sum's order for every query.
+
+// ((word >> bit) & mask) << S as one shift and one mask; bit and S are
+// compile-time after unrolling.
+template <int S>
+__device__ __forceinline__ uint32_t field_offset(uint32_t word, int bit, uint32_t mask) {
+  return (bit >= S ? word >> (bit >= S ? bit - S : 0) : word << (bit < S ? S - bit : 0))
+         & (mask << S);
+}
+
+// QPL consecutive float32 from a 32-bit shared address (aligned to QPL * 4).
+template <int QPL>
+struct LdsF32;
+template <>
+struct LdsF32<1> {
+  static __device__ __forceinline__ void load(uint32_t a, float (&v)[1]) {
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(a));
+  }
+};
+template <>
+struct LdsF32<2> {
+  static __device__ __forceinline__ void load(uint32_t a, float (&v)[2]) {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v[0]), "=f"(v[1]) : "r"(a));
+  }
+};
+template <>
+struct LdsF32<4> {
+  static __device__ __forceinline__ void load(uint32_t a, float (&v)[4]) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(a));
+  }
+};
+
+// Distances of code c (< 128 / CB) of the row held in w for the lane's QPL
+// queries. Call it with a compile-time c, as adc4_sum.
+template <int CB, int QPL>
+__device__ __forceinline__ void adc4_sum_query_minor(const uint32_t (&w)[32], int c,
+                                                     uint32_t lane_addr, float (&acc)[QPL]) {
+  constexpr int S = QPL == 1 ? 7 : QPL == 2 ? 8 : 9;  // log2 of one entry's bytes
+  constexpr uint32_t kSubq = 16u << S;                // bytes of one sub-quantizer's 16 entries
+#pragma unroll
+  for (int i = 0; i < QPL; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int b = 0; b < CB; ++b) {
+    const int byte_idx = c * CB + b;
+    const uint32_t word = w[byte_idx >> 2];
+    const int bit = (byte_idx & 3) * 8;
+    float lo[QPL], hi[QPL];
+    LdsF32<QPL>::load((field_offset<S>(word, bit, 15u) | lane_addr) + (2 * b) * kSubq, lo);
+    LdsF32<QPL>::load((field_offset<S>(word, bit + 4, 15u) | lane_addr) + (2 * b + 1) * kSubq, hi);
+#pragma unroll
+    for (int i = 0; i < QPL; ++i) {
+      acc[i] += lo[i];  // even sub-quantizer: low nibble
+      acc[i] += hi[i];  // odd sub-quantizer: high nibble
+    }
+  }
 }
 
 }  // namespace qadc

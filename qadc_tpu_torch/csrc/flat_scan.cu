@@ -31,6 +31,12 @@
 // never conflict. Queries are chunked (slot_chunks.cuh) so that a block stages
 // at most 64 KB: a float table of 32 sub-quantizers is 2 KB, and 128 queries
 // would not fit one block. Writes to out[q, row] are coalesced across a warp.
+//
+// Where it runs: its time follows the query count, so it serves float tables
+// below lut_scan.QUERY_MINOR_MIN_QUERIES queries, where the query-minor
+// kernel (flat_scan_qm.cuh), whose lanes are queries, would idle; and at any
+// batch as the A/B arms lut_scan.flat_scan_lookup (int8) and
+// flat_scan_f32_lookup (float32) of the kernels that replaced it.
 
 #include <cstdint>
 #include <cuda_runtime.h>

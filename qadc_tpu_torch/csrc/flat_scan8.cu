@@ -33,6 +33,11 @@
 // Per query each lane sums its code; the half-warp's minimum comes from four
 // xor shuffles, and its argmin, ties to the lower code, is the lowest lane
 // holding the minimum (a ballot).
+//
+// Where it runs: its time follows the query count, so it serves batches below
+// lut_scan.QUERY_MINOR_MIN_QUERIES8 queries, where the query-minor kernel
+// (flat_scan8_qm.cuh), whose lanes are queries, would idle; and at any batch
+// as the A/B arm lut_scan.flat_scan8_lookup of that kernel.
 
 #include <cmath>
 #include <cstdint>
@@ -91,13 +96,15 @@ __device__ __forceinline__ int member(int j, int l) {
   return (j + 16 * (l / kCpr)) * kCpr + l % kCpr;            // 16 / cpr whole rows
 }
 
-template <int M>
+// kConstCode (the scan lab): every lookup at code byte 0x5A, so the lanes of a
+// warp read one entry and no load conflicts; its output is not the scan's.
+template <int M, bool kConstCode>
 __global__ void __launch_bounds__(kThreads)
 flat_scan8_kernel(const uint8_t* __restrict__ codes,     // (N_pad, M) as row128 storage
                   const uint16_t* __restrict__ tables,   // (Q, M, 256) bf16
                   float* __restrict__ out_min,           // (Q, N_pad / 16)
                   int32_t* __restrict__ out_idx,         // (Q, N_pad / 16)
-                  int n_blocks, int q_count, int n, int chunk) {
+                  int n_blocks, int q_count, int n, int chunk, uint32_t const_keep) {
   constexpr int kTable = M * 256;  // entries of one query's table
   constexpr int kVecs = kTable * 2 / 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -122,6 +129,10 @@ flat_scan8_kernel(const uint8_t* __restrict__ codes,     // (N_pad, M) as row128
     const bool real = code < n;
     uint32_t w[M / 4];
     Words<M / 4>::load(codes + static_cast<size_t>(code) * M, w);
+    if (kConstCode) {
+#pragma unroll
+      for (int k = 0; k < M / 4; ++k) w[k] = (w[k] & const_keep) | 0x5A5A5A5Au;
+    }
     const size_t o = static_cast<size_t>(q0) * windows + blk * 16 + j;
     for (int q = 0; q < nq; ++q) {
       const uint16_t* t = s_tab + q * kTable;
@@ -146,21 +157,21 @@ flat_scan8_kernel(const uint8_t* __restrict__ codes,     // (N_pad, M) as row128
   }
 }
 
-template <int M>
+template <int M, bool kConstCode = false>
 cudaError_t launch(const void* codes, const void* tables, void* out_min, void* out_idx,
                    int n_blocks, int q_count, int n, cudaStream_t stream) {
   constexpr int kQueryBytes = M * 256 * 2;
   const qadc::SlotChunks chunks = qadc::slot_chunks(q_count, kQueryBytes);
   const size_t smem = static_cast<size_t>(chunks.chunk) * kQueryBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flat_scan8_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flat_scan8_kernel<M, kConstCode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n_blocks + kBlocksPerCta - 1) / kBlocksPerCta, chunks.count);
-  flat_scan8_kernel<M><<<grid, kThreads, smem, stream>>>(
+  flat_scan8_kernel<M, kConstCode><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const uint16_t*>(tables),
       static_cast<float*>(out_min), static_cast<int32_t*>(out_idx), n_blocks, q_count, n,
-      chunks.chunk);
+      chunks.chunk, 0u);
   return cudaGetLastError();
 }
 
@@ -177,4 +188,13 @@ extern "C" int qadc_flat_scan8(const void* codes, const void* tables, void* out_
   if (m == 16) return launch<16>(codes, tables, out_min, out_idx, n_blocks, q_count, n, s);
   if (m == 32) return launch<32>(codes, tables, out_min, out_idx, n_blocks, q_count, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The scan lab's const_code mode of the kernel above at m = 8 (same arguments).
+extern "C" int qadc_flat_scan8_const_code(const void* codes, const void* tables, void* out_min,
+                                          void* out_idx, int n_blocks, int q_count, int n,
+                                          void* stream) {
+  if (q_count < 1 || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<8, true>(codes, tables, out_min, out_idx, n_blocks, q_count, n,
+                         static_cast<cudaStream_t>(stream));
 }

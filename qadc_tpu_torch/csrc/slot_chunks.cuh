@@ -5,8 +5,10 @@
 // shared memory. Chunking bounds a block's shared memory by kSmemBudget at
 // any group size and table width: a float table of 32 sub-quantizers is
 // 2 KB and a bf16 8-bit table of 16 is 8 KB, so G = 128 slots would not fit
-// one block. The flat scans (flat_scan.cu, flat_scan8.cu) chunk their
-// queries by slot_chunks in the same way.
+// one block. The lookup flat scans (flat_scan.cu, flat_scan8.cu) chunk their
+// queries by slot_chunks in the same way; the query-minor ones
+// (flat_scan_qm.cuh, flat_scan8_qm.cuh) hold 128 KB of tables a block and take
+// their chunk from lut_scan.query_minor_chunk.
 
 #pragma once
 

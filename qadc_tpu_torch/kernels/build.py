@@ -62,6 +62,17 @@ SIGNATURES = {
     "qadc_scan_lab_wgmma": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, cb, stream
     "qadc_selector_sum": (_P, _P, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, chunk, stream
+    "qadc_flat_scan_qm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out_min, out_idx, n_blocks, q_count, n, m, chunk, stream
+    "qadc_flat_scan8_qm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, r_count, q_count, n, chunk, mode, stream
+    "qadc_flat_scan_qm_lab": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out_min, out_idx, n_blocks, q_count, n, chunk, mode, stream
+    "qadc_flat_scan8_qm_lab": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out_min, out_idx, n_blocks, q_count, n, stream
+    "qadc_flat_scan8_const_code": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "qadc_empty_kernel": (_P,),  # stream
 }
 
 

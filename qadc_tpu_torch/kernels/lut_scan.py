@@ -12,11 +12,19 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
                          tables (scan_wgmma.cu from WGMMA_MIN_QUERIES
-                         queries, scan_mma.cu below) or float32 (flat_scan.cu)
+                         queries, scan_mma.cu below) or float32 (the
+                         query-minor kernel of flat_scan_qm.cuh from
+                         QUERY_MINOR_MIN_QUERIES queries, flat_scan.cu below)
   grouped_scan_lookup, flat_scan_lookup: the int8 scans by the lookup
                          kernels (one shared-memory lookup a nibble), kept
                          for the A/B against the tensor-core kernels
-  flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit)
+  flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit): the query-minor
+                         kernel of flat_scan8_qm.cuh from
+                         QUERY_MINOR_MIN_QUERIES8 queries, flat_scan8.cu below
+  flat_scan_f32_lookup, flat_scan8_lookup: the float 4-bit and the 8-bit
+                         flat scans by the kernels of flat_scan.cu and
+                         flat_scan8.cu at any batch, kept for the A/B against
+                         the query-minor kernels
   flat_scan_window      (8, 8v, 8w) <- lut_scan_reduce at any (block_n,
                          window), its accumulate variants, and (through
                          lut_scan_topk_int8) its screened top-r
@@ -80,15 +88,37 @@ WINDOW_SCAN_MAX_BLOCK_BYTES = 128 * 1024
 # 48: 0.066 / 0.067, 64: 0.074 / 0.067, 128: 0.134 / 0.069.
 WGMMA_MIN_QUERIES = 48
 
+# Shared memory one thread block may take on the H100
+# (cudaFuncAttributeMaxDynamicSharedMemorySize), and the part of it the
+# query-minor flat scans (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh) fill with
+# one chunk of queries' tables; the rest stages their outputs.
+SMEM_BLOCK_BYTES = 227 * 1024
+QUERY_MINOR_TABLE_BYTES = 128 * 1024
+# Fewest queries of a query-minor chunk: a lane is a query of the float scan
+# (32 lanes a code), a lane is two queries of the 8-bit scan (4 lanes a code).
+QUERY_MINOR_LEAST, QUERY_MINOR_LEAST8 = 32, 8
+# Fewest queries at which flat_scan with float tables and flat_scan8 run their
+# query-minor kernels; below, most lanes of those would idle and the kernels
+# of csrc/flat_scan.cu / flat_scan8.cu run, whose time follows the query count.
+# The crossovers measured on an NVIDIA H100 80GB HBM3, 700.00 W, over 1M 8-byte
+# codes (scripts/torch_scan_lab.py), ms by query-minor / lookup kernel: float
+# 16 queries 0.088 / 0.075, 20: 0.089 / 0.094, 32: 0.089 / 0.147, 128: 0.286 /
+# 0.555; 8-bit 3 queries 0.0173 / 0.0150, 4: 0.0175 / 0.0193, 32: 0.053 / 0.168.
+QUERY_MINOR_MIN_QUERIES = 20
+QUERY_MINOR_MIN_QUERIES8 = 4
+
 # Launches of each kernel since the last reset_launch_counts();
 # grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables,
 # grouped_scan_lookup and flat_scan_lookup the int8 scans by the lookup
-# kernels, scan_lab and selector_sum the instruments of kernels/scan_lab.py.
+# kernels, flat_scan_f32_lookup and flat_scan8_lookup the float and 8-bit flat
+# scans by the kernels the query-minor ones replaced, scan_lab, selector_sum
+# and empty_kernel the instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
             "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
             "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0,
-            "grouped_scan_lookup": 0, "flat_scan_lookup": 0, "scan_lab": 0,
-            "selector_sum": 0}
+            "grouped_scan_lookup": 0, "flat_scan_lookup": 0,
+            "flat_scan_f32_lookup": 0, "flat_scan8_lookup": 0, "scan_lab": 0,
+            "selector_sum": 0, "empty_kernel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -507,6 +537,18 @@ def flat_scan_lookup(codes_rows, tables, n: int, with_rows: bool = False):
     return _launch_flat_scan(codes_rows, tables, n, with_rows, "flat_scan_lookup")
 
 
+def flat_scan_f32_lookup(codes_rows, tables, n: int, with_rows: bool = False):
+    """flat_scan's float32 result by the row-a-thread kernel (flat_scan.cu) at
+    any batch: the same arguments (float32 tables only) and the same minima
+    and indices, bit for bit. An A/B instrument: no search path calls it."""
+    f32, n = _check_flat_scan(codes_rows, tables, n, f32_ok=True)
+    if not f32:
+        raise TypeError(f"tables must be torch.float32, got {tables.dtype}")
+    if codes_rows.device.type == "cpu":
+        return flat_scan_plain(codes_rows, tables, n, with_rows)
+    return _launch_flat_scan(codes_rows, tables, n, with_rows, "flat_scan_f32_lookup")
+
+
 def _check_flat_scan(codes_rows, tables, n, f32_ok: bool) -> tuple[bool, int]:
     """Argument checks of flat_scan. Returns (float32 tables, n clipped)."""
     dev = codes_rows.device
@@ -523,13 +565,14 @@ def _check_flat_scan(codes_rows, tables, n, f32_ok: bool) -> tuple[bool, int]:
 def _launch_flat_scan(codes_rows, tables, n: int, with_rows: bool, kernel: str):
     """Launch flat_scan on checked CUDA tensors. `kernel` is its key in
     `launches`: flat_scan runs a tensor-core kernel, chosen by the batch
-    (with_rows too: they take the minimum of (sum << 4) | code_in_row), the
-    other two the lookup kernel."""
+    (with_rows too: they take the minimum of (sum << 4) | code_in_row),
+    flat_scan_f32 the query-minor kernel from QUERY_MINOR_MIN_QUERIES queries
+    on, and the others (and flat_scan_f32 below that) the lookup kernel."""
     dev = codes_rows.device
     _require_cuda(dev, codes_rows, tables)
     q, m, _ = tables.shape
     r_count = codes_rows.shape[0]
-    f32 = kernel == "flat_scan_f32"
+    f32 = kernel in ("flat_scan_f32", "flat_scan_f32_lookup")
     out = torch.empty((q, r_count), dtype=tables.dtype if f32 else torch.int32, device=dev)
     idx = torch.empty((q, r_count), dtype=torch.int32, device=dev) if with_rows else None
     if q and r_count:
@@ -538,6 +581,9 @@ def _launch_flat_scan(codes_rows, tables, n: int, with_rows: bool, kernel: str):
         if kernel == "flat_scan":
             entry = "qadc_flat_scan_wgmma" if q >= WGMMA_MIN_QUERIES else "qadc_flat_scan_mma"
             _launch(entry, dev, *ptrs, r_count, q, n, m // 2)
+        elif kernel == "flat_scan_f32" and q >= QUERY_MINOR_MIN_QUERIES:
+            _launch("qadc_flat_scan_qm", dev, *ptrs, r_count, q, n, m // 2,
+                    flat_scan_chunk(q, m))
         else:
             _launch("qadc_flat_scan", dev, *ptrs, r_count, q, n, m // 2, int(f32))
         launches[kernel] += 1
@@ -569,6 +615,139 @@ def flat_scan_plain(codes_rows, tables, n: int, with_rows: bool = False):
     if not with_rows:
         return best, None
     return best, torch.where(empty, -1, arg).to(torch.int32)
+
+
+def query_minor_chunk(q: int, query_bytes: int, least: int) -> int:
+    """Queries a block of a query-minor scan stages at a batch of q: the
+    power of two that covers q, at least `least` (what fills a warp's lanes)
+    and at most what QUERY_MINOR_TABLE_BYTES hold at query_bytes a query."""
+    cap = QUERY_MINOR_TABLE_BYTES // query_bytes
+    if cap < least:
+        raise ValueError(f"a table of {query_bytes} bytes a query does not fit a chunk")
+    return min(cap, max(least, 1 << max(0, int(q) - 1).bit_length()))
+
+
+def flat_scan_chunk(q: int, m: int) -> int:
+    """query_minor_chunk of flat_scan's float tables at m sub-quantizers:
+    32, 64 or (m = 16 only) 128 queries, a lane holding 1, 2 or 4 of them."""
+    return query_minor_chunk(q, m * 16 * 4, QUERY_MINOR_LEAST)
+
+
+def flat_scan8_chunk(q: int, m: int) -> int:
+    """query_minor_chunk of flat_scan8's bf16 tables at m sub-quantizers: 8 to
+    256 / m queries, a lane holding two of them."""
+    return query_minor_chunk(q, m * 256 * 2, QUERY_MINOR_LEAST8)
+
+
+def flat_scan_smem_bytes(m: int, chunk: int, with_rows: bool) -> int:
+    """Shared memory csrc/flat_scan_qm.cuh asks for: the chunk's tables, their
+    alignment slack (one sub-quantizer's entries), and two staged tiles of 32
+    rows (padded to 33) of minima, and of indices with rows."""
+    return 16 * chunk * 4 + m * 16 * chunk * 4 + 2 * chunk * 33 * 4 * (2 if with_rows else 1)
+
+
+def flat_scan8_smem_bytes(m: int, chunk: int) -> int:
+    """Shared memory csrc/flat_scan8_qm.cuh asks for: the chunk's tables, their
+    alignment slack (one sub-quantizer's entries), and two staged tiles of
+    4 * 64 / chunk blocks' windows (padded by one) of minima and indices."""
+    tile_windows = 16 * 4 * (64 // chunk)
+    return 256 * chunk * 2 + m * 256 * chunk * 2 + 2 * 2 * chunk * (tile_windows + 1) * 4
+
+
+def to_query_minor(tables, chunk: int):
+    """(Q, M, K) tables -> (chunks, M, K, chunk), the layout a query-minor scan
+    stages in shared memory: chunk c holds queries c*chunk .., query-minor,
+    zeros past Q."""
+    q, m, k = tables.shape
+    count = -(-q // chunk)
+    out = tables.new_zeros((count * chunk, m, k))
+    out[:q] = tables
+    return out.reshape(count, chunk, m, k).permute(0, 2, 3, 1).contiguous()
+
+
+def from_query_minor(qm, q: int):
+    """The inverse of to_query_minor: (chunks, M, K, chunk) -> (q, M, K)."""
+    count, m, k, chunk = qm.shape
+    return qm.permute(0, 3, 1, 2).reshape(count * chunk, m, k)[:q].contiguous()
+
+
+def flat_scan_query_minor_plain(codes_rows, tables, n: int, with_rows: bool = False):
+    """flat_scan's float32 function by the query-minor kernel's own walk
+    (csrc/flat_scan_qm.cuh): the same arguments (float32 tables) and result as
+    flat_scan_plain, bit for bit.
+
+    The tables go query-minor in flat_scan_chunk's chunks; a chunk's queries
+    take a row's codes in code order, each code's sum running over b =
+    0..cb-1, low nibble then high, against an entry's row of queries, and keep
+    a running minimum with a strict <. Used by the tests and chip_smoke.py,
+    by no search path.
+    """
+    q, m, _ = tables.shape
+    cb = m // 2
+    cpr = 128 // cb
+    r_count = codes_rows.shape[0]
+    n = max(0, min(int(n), r_count * cpr))
+    dev = codes_rows.device
+    chunk = flat_scan_chunk(q, m)
+    rows = codes_rows.reshape(r_count, cpr, cb).long()
+    real = n - torch.arange(r_count, device=dev) * cpr            # real codes of each row
+    mins, args = [], []
+    for tab in to_query_minor(tables, chunk):                     # (M, 16, chunk)
+        best = torch.full((r_count, chunk), torch.inf, dtype=torch.float32, device=dev)
+        arg = torch.zeros((r_count, chunk), dtype=torch.int64, device=dev)
+        for c in range(cpr):
+            acc = torch.zeros((r_count, chunk), dtype=torch.float32, device=dev)
+            for b in range(cb):
+                byte = rows[:, c, b]
+                acc = acc + tab[2 * b][byte & 15]
+                acc = acc + tab[2 * b + 1][byte >> 4]
+            take = (c < real)[:, None] & (acc < best)             # strict: the lower code stays
+            best = torch.where(take, acc, best)
+            arg = torch.where(take, c, arg)
+        mins.append(best.T)
+        args.append(arg.T)
+    empty = real <= 0
+    best = torch.cat(mins)[:q].contiguous()
+    if not with_rows:
+        return best, None
+    code = torch.arange(r_count, device=dev)[None, :] * cpr + torch.cat(args)[:q]
+    return best, torch.where(empty, -1, code).to(torch.int32)
+
+
+def flat_scan8_query_minor_plain(codes_rows, tables, n: int):
+    """flat_scan8's function by the query-minor kernel's own walk
+    (csrc/flat_scan8_qm.cuh): the same arguments and result as
+    flat_scan8_plain, bit for bit.
+
+    The tables go query-minor in flat_scan8_chunk's chunks; a chunk's queries
+    take a window's 16 members in flat8_members' order, each code's sum
+    running in float32 over b = 0..m-1 against an entry's row of queries, and
+    keep a running minimum with a strict <. Used by the tests and
+    chip_smoke.py, by no search path.
+    """
+    q, m, _ = tables.shape
+    dev = codes_rows.device
+    codes = codes_rows.reshape(-1, m).long()                      # (N_pad, m)
+    n = max(0, min(int(n), codes.shape[0]))
+    members = flat8_members(torch.arange(codes.shape[0] // FLAT8_WINDOW, device=dev), m)
+    chunk = flat_scan8_chunk(q, m)
+    mins, args = [], []
+    for tab in to_query_minor(tables, chunk).to(torch.float32):   # (m, 256, chunk)
+        best = torch.full((members.shape[0], chunk), torch.inf, dtype=torch.float32, device=dev)
+        arg = torch.zeros((members.shape[0], chunk), dtype=torch.int64, device=dev)
+        for rank in range(FLAT8_WINDOW):
+            code = members[:, rank]
+            acc = torch.zeros_like(best)
+            for b in range(m):
+                acc = acc + tab[b][codes[code, b]]
+            take = (code < n)[:, None] & (acc < best)             # strict: the lower code stays
+            best = torch.where(take, acc, best)
+            arg = torch.where(take, code[:, None], arg)
+        mins.append(best.T)
+        args.append(arg.T)
+    best = torch.cat(mins)[:q].contiguous()
+    arg = torch.cat(args)[:q]
+    return best, torch.where(torch.isinf(best), -1, arg).to(torch.int32)
 
 
 def scan_onehot_plain(codes_rows, tables, n: int, with_rows: bool = False,
@@ -852,6 +1031,20 @@ def flat_scan8(codes_rows, tables, n: int):
       the code index of the minimum (ties to the lower code); +inf and -1
       for a window with no real code.
     """
+    return _flat_scan8(codes_rows, tables, n, "flat_scan8")
+
+
+def flat_scan8_lookup(codes_rows, tables, n: int):
+    """flat_scan8's result by the code-a-thread kernel (flat_scan8.cu) at any
+    batch: the same arguments and the same minima and indices, bit for bit.
+    An A/B instrument: no search path calls it."""
+    return _flat_scan8(codes_rows, tables, n, "flat_scan8_lookup")
+
+
+def _flat_scan8(codes_rows, tables, n: int, kernel: str):
+    """flat_scan8 by `kernel`, its key in `launches`: flat_scan8 runs the
+    query-minor kernel from QUERY_MINOR_MIN_QUERIES8 queries on,
+    flat_scan8_lookup (and flat_scan8 below that) the code-a-thread kernel."""
     dev = codes_rows.device
     _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
     _check(tables, "tables", torch.bfloat16, 3, dev)
@@ -871,9 +1064,13 @@ def flat_scan8(codes_rows, tables, n: int):
     mins = torch.empty((q, c), dtype=torch.float32, device=dev)
     idx = torch.empty((q, c), dtype=torch.int32, device=dev)
     if q and n_pad:
-        _launch("qadc_flat_scan8", dev, codes_rows.data_ptr(), tables.data_ptr(),
-                mins.data_ptr(), idx.data_ptr(), n_pad // FLAT8_BLOCK, q, n, m)
-        launches["flat_scan8"] += 1
+        args = (codes_rows.data_ptr(), tables.data_ptr(), mins.data_ptr(), idx.data_ptr(),
+                n_pad // FLAT8_BLOCK, q, n, m)
+        if kernel == "flat_scan8" and q >= QUERY_MINOR_MIN_QUERIES8:
+            _launch("qadc_flat_scan8_qm", dev, *args, flat_scan8_chunk(q, m))
+        else:
+            _launch("qadc_flat_scan8", dev, *args)
+        launches[kernel] += 1
     return mins, idx
 
 

@@ -21,6 +21,11 @@ its counterpart here, over the tensor-core scan of csrc/scan_mma.cuh:
 Every mode is one launch of a kernel of csrc/scan_lab.cu; `check` holds each
 instrument to what defines it, `times` times them with the timer it is given. No search path calls
 anything here.
+
+The query-minor flat scans (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh) have
+their modes in QM_LAB_MODES (`query_minor_lab`, kernels of csrc/scan_lab_qm.cu),
+`query_minor_by_chunk` runs either at a forced chunk of queries, and
+`empty_kernel` gives the device time of a launch.
 """
 
 from __future__ import annotations
@@ -107,6 +112,143 @@ def scan_lab_plain(codes_rows, tables, n: int, mode: str = "full"):
                          dtype=torch.int32, device=codes_rows.device)
         return out
     raise RuntimeError(f"lab mode {mode!r} has no plain version: it is timed on the card")
+
+
+# name -> (scan: "f32" the float 4-bit scan at 16 sub-quantizers, "u8" the 8-bit
+# scan at 8, "u8_lookup" the code-a-thread kernel of csrc/flat_scan8.cu; the
+# kernels' mode number; what the mode keeps).
+QM_LAB_MODES = {
+    "f32_copy": ("f32", 1, "codes in, sentinel out"),
+    "f32_no_min": ("f32", 2, "lookups and sums, no minimum"),
+    "f32_const_code": ("f32", 3, "lookups at a fixed code byte"),
+    "u8_copy": ("u8", 1, "codes in, sentinel out"),
+    "u8_no_min": ("u8", 2, "lookups and sums, no minimum"),
+    "u8_const_code": ("u8", 3, "lookups at a fixed code byte: no two lane groups collide"),
+    "u8_lookup_const_code": ("u8_lookup", 3, "the replaced kernel with every lane on one "
+                                             "entry: its time less its bank conflicts"),
+}
+
+
+def _check_query_minor_lab(codes_rows, tables, n: int, f32: bool) -> int:
+    dev = codes_rows.device
+    _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
+    _check(tables, "tables", torch.float32 if f32 else torch.bfloat16, 3, dev)
+    want = (16, 16) if f32 else (8, 256)
+    if codes_rows.shape[1] != 128 or tuple(tables.shape[1:]) != want:
+        raise ValueError(f"need (R, 128) codes and (Q, {want[0]}, {want[1]}) tables, got "
+                         f"{tuple(codes_rows.shape)} and {tuple(tables.shape)}")
+    if not f32 and (codes_rows.shape[0] * 16) % lut_scan.FLAT8_BLOCK:
+        raise ValueError(f"need a multiple of {lut_scan.FLAT8_BLOCK} codes")
+    return max(0, min(int(n), codes_rows.shape[0] * 16))
+
+
+def _launch_query_minor(codes_rows, tables, n: int, chunk: int, mode: int, lookup: bool = False):
+    """One launch of a query-minor scan (mode 0: the production entry) or of a
+    lab mode of it, at a chunk of queries, counted under scan_lab."""
+    f32 = tables.dtype == torch.float32
+    dev = codes_rows.device
+    _require_cuda(dev, codes_rows, tables)
+    q, r_count = tables.shape[0], codes_rows.shape[0]
+    if f32:
+        out = torch.empty((q, r_count), dtype=torch.float32, device=dev)
+        args = (codes_rows.data_ptr(), tables.data_ptr(), out.data_ptr())
+        if mode == 0:
+            _launch("qadc_flat_scan_qm", dev, *args, None, r_count, q, n, 8, chunk)
+        else:
+            _launch("qadc_flat_scan_qm_lab", dev, *args, r_count, q, n, chunk, mode)
+    else:
+        out = (torch.empty((q, r_count), dtype=torch.float32, device=dev),
+               torch.empty((q, r_count), dtype=torch.int32, device=dev))
+        args = (codes_rows.data_ptr(), tables.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                r_count // 16, q, n)
+        if lookup:
+            _launch("qadc_flat_scan8_const_code", dev, *args)
+        elif mode == 0:
+            _launch("qadc_flat_scan8_qm", dev, *args, 8, chunk)
+        else:
+            _launch("qadc_flat_scan8_qm_lab", dev, *args, chunk, mode)
+    launches["scan_lab"] += 1
+    return out
+
+
+def query_minor_lab(codes_rows, tables, n: int, mode: str):
+    """A query-minor flat scan (or, "u8_lookup_const_code", the kernel one
+    replaced) with parts removed, at the chunk the wrapper would pick.
+
+    Args:
+      codes_rows: (R, 128) uint8 row128 storage of 8-byte codes (R * 16 a
+        multiple of 256 for the 8-bit modes).
+      tables: (Q, 16, 16) float32 for the f32 modes, (Q, 8, 256) bfloat16 for
+        the others.
+      n: real code count.
+      mode: a key of QM_LAB_MODES.
+
+    Returns:
+      (Q, R) float32 for the f32 modes, ((Q, R) float32, (Q, R) int32) for the
+      others. The copy modes return +inf (and -1) everywhere; the other modes
+      return values that only keep the compiler from dropping what the mode
+      keeps. On the CPU the copy modes run their plain version and the others
+      raise: they exist to be timed on the card.
+    """
+    scan, number, _ = QM_LAB_MODES[mode]
+    f32 = scan == "f32"
+    n = _check_query_minor_lab(codes_rows, tables, n, f32)
+    q, r_count = tables.shape[0], codes_rows.shape[0]
+    if codes_rows.device.type == "cpu":
+        if number != 1:
+            raise RuntimeError(f"lab mode {mode!r} has no plain version: it is timed on the card")
+        mins = torch.full((q, r_count), torch.inf, dtype=torch.float32)
+        return mins if f32 else (mins, torch.full((q, r_count), -1, dtype=torch.int32))
+    chunk = lut_scan.flat_scan_chunk(q, 16) if f32 else lut_scan.flat_scan8_chunk(q, 8)
+    return _launch_query_minor(codes_rows, tables, n, chunk, number, lookup=scan == "u8_lookup")
+
+
+def query_minor_by_chunk(codes_rows, tables, n: int, chunk: int):
+    """The production query-minor scan at a forced chunk of queries (float
+    tables (Q, 16, 16): 32, 64 or 128, a lane holding 1, 2 or 4 queries; bf16
+    tables (Q, 8, 256): 8, 16 or 32, a warp holding 8, 4 or 2 codes). The
+    result is flat_scan's minima / flat_scan8's (minima, indices) at every
+    chunk. On the CPU the plain version runs (it has no chunk to force)."""
+    f32 = tables.dtype == torch.float32
+    n = _check_query_minor_lab(codes_rows, tables, n, f32)
+    if codes_rows.device.type == "cpu":
+        if f32:
+            return lut_scan.flat_scan_plain(codes_rows, tables, n)[0]
+        return lut_scan.flat_scan8_plain(codes_rows, tables, n)
+    if chunk not in ((32, 64, 128) if f32 else (8, 16, 32)):
+        raise ValueError(f"no query-minor kernel at a chunk of {chunk} queries")
+    return _launch_query_minor(codes_rows, tables, n, chunk, 0)
+
+
+def empty_kernel(device) -> None:
+    """Launch one block of one thread that does nothing: its device time is
+    what a launch costs, the floor under the kernels of a few microseconds."""
+    device = torch.device(device)
+    _require_cuda(device)
+    _launch("qadc_empty_kernel", device)
+    launches["empty_kernel"] += 1
+
+
+def check_query_minor(codes_rows, tables_f32, tables_bf16, n: int) -> None:
+    """One launch of every instrument of the query-minor scans, each held to
+    what defines it: every chunk equal to the replaced kernel bit for bit,
+    the copy modes to their sentinels; the other modes only launch."""
+    want = lut_scan.flat_scan_f32_lookup(codes_rows, tables_f32, n)[0]
+    for chunk in (32, 64, 128):
+        if not torch.equal(query_minor_by_chunk(codes_rows, tables_f32, n, chunk), want):
+            raise AssertionError(f"float flat_scan at chunk {chunk} differs from the lookup kernel")
+    want = lut_scan.flat_scan8_lookup(codes_rows, tables_bf16, n)
+    for chunk in (8, 16, 32):
+        got = query_minor_by_chunk(codes_rows, tables_bf16, n, chunk)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"flat_scan8 at chunk {chunk} differs from the lookup kernel")
+    for mode, (scan, number, _) in QM_LAB_MODES.items():
+        got = query_minor_lab(codes_rows, tables_f32 if scan == "f32" else tables_bf16, n, mode)
+        if number == 1:
+            mins = got if scan == "f32" else got[0]
+            if not bool(torch.isinf(mins).all()) or (scan != "f32" and not bool((got[1] == -1).all())):
+                raise AssertionError(f"lab mode {mode} did not write the sentinel")
+    empty_kernel(codes_rows.device)
 
 
 def selector_sum(x, cb: int):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The scan lab on one CUDA card: where the time of the 4-bit int8 scans goes.
 
-    python3 scripts/torch_scan_lab.py      # one CUDA card, about 40 s
+    python3 scripts/torch_scan_lab.py      # one CUDA card, about 70 s
 
 The counterpart of the JAX package's scratch scripts benchmarks/ab_tq.py,
 ab_tq_ablate.py, kernel_lab.py and diag_direct.py, for the tensor-core scans
@@ -26,6 +26,16 @@ queries' int8 tables it prints, in device milliseconds (torch.profiler,
   M1       grouped_scan against grouped_scan_lookup at the routed groups of
            32 and 128 queries x 24 probes over the seeded IVF-256 index.
 
+  query-minor  the float32 flat_scan and flat_scan8 by their query-minor
+           kernels (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh) against the
+           kernels they replaced, at 128 and 32 queries; each at every chunk
+           of queries it can stage; their lab modes (copy, no_min,
+           const_code, and const_code of the replaced 8-bit kernel); both
+           kernels of each scan by batch (the crossovers behind
+           lut_scan.QUERY_MINOR_MIN_QUERIES and QUERY_MINOR_MIN_QUERIES8);
+           an empty kernel (the launch floor), and selector_sum against
+           torch.matmul in ten runs of 100 launches each.
+
 The last two lines are one JSON object {"scan_lab": ...} and the card's name
 and power limit. It exits non-zero without a card or on any disagreement.
 """
@@ -49,8 +59,9 @@ from qadc_tpu_torch.kernels import lut_scan, scan_lab  # noqa: E402
 N_PAD, N, Q, MA, REPS = 1_000_448, 1_000_000, 128, 24, 100
 
 
-def device_ms(fn, kernel: str, reps: int = REPS) -> float:
-    """Device milliseconds of the named kernel in one call of fn."""
+def device_ms(fn, kernel: str, reps: int = REPS, whole_call: bool = False) -> float:
+    """Device milliseconds of the named kernel in one call of fn, or with
+    whole_call of every kernel the call launches (a library call's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,8 +76,78 @@ def device_ms(fn, kernel: str, reps: int = REPS) -> float:
     count = sum(e.count for e in events)
     if count <= 0:
         raise RuntimeError(f"the profiler saw no launch of {kernel}")
+    total = sum(e.self_device_time_total for e in events)
+    if whole_call:
+        return total / reps / 1e3
     # The mean over the launches the profiler recorded: on a busy host it drops some.
-    return sum(e.self_device_time_total for e in events) / count / 1e3
+    return total / count / 1e3
+
+
+def query_minor(codes, dev, card: str) -> dict:
+    """The query-minor section: see the module docstring."""
+    rng = np.random.default_rng(1)
+    t4 = torch.from_numpy(rng.random((Q, 16, 16)).astype(np.float32)).to(dev)
+    t8 = torch.from_numpy(rng.random((32, 8, 256)).astype(np.float32)).to(torch.bfloat16).to(dev)
+    scan_lab.check_query_minor(codes, t4, t8, N)
+    new4, old4, new8, old8 = ("flat_scan_qm_kernel", "flat_scan_kernel", "flat_scan8_qm_kernel",
+                              "flat_scan8_kernel")
+    out = {"ab_ms": {
+        "flat_scan_f32 b=128": device_ms(lambda: lut_scan.flat_scan(codes, t4, N), new4),
+        "flat_scan_f32_lookup b=128": device_ms(
+            lambda: lut_scan.flat_scan_f32_lookup(codes, t4, N), old4),
+        "flat_scan_f32 b=128 with_rows": device_ms(
+            lambda: lut_scan.flat_scan(codes, t4, N, True), new4),
+        "flat_scan8 b=32": device_ms(lambda: lut_scan.flat_scan8(codes, t8, N), new8),
+        "flat_scan8_lookup b=32": device_ms(lambda: lut_scan.flat_scan8_lookup(codes, t8, N), old8),
+    }}
+    print(f"query-minor A/B x {N_PAD} codes, device ms: {out['ab_ms']} [{card}]", flush=True)
+    out["chunk_ms"] = {
+        **{f"f32 b=128 chunk {c}": device_ms(
+            lambda c=c: scan_lab.query_minor_by_chunk(codes, t4, N, c), new4) for c in (32, 64, 128)},
+        **{f"u8 b=32 chunk {c}": device_ms(
+            lambda c=c: scan_lab.query_minor_by_chunk(codes, t8, N, c), new8) for c in (8, 16, 32)}}
+    print(f"query-minor by chunk of queries, device ms: {out['chunk_ms']} [{card}]", flush=True)
+    out["mode_ms"] = {
+        mode: device_ms(lambda mode=mode, scan=scan: scan_lab.query_minor_lab(
+            codes, t4 if scan == "f32" else t8, N, mode),
+            {"f32": new4, "u8": new8, "u8_lookup": old8}[scan])
+        for mode, (scan, _, _) in scan_lab.QM_LAB_MODES.items()}
+    print(f"query-minor modes, device ms: {out['mode_ms']} [{card}]", flush=True)
+
+    # Both kernels of each scan at every batch: the wrappers' thresholds forced.
+    out["crossover_ms"] = {}
+    floors = lut_scan.QUERY_MINOR_MIN_QUERIES, lut_scan.QUERY_MINOR_MIN_QUERIES8
+    try:
+        lut_scan.QUERY_MINOR_MIN_QUERIES = lut_scan.QUERY_MINOR_MIN_QUERIES8 = 1
+        for q in (1, 2, 4, 8, 16, 20, 24, 32, 64, Q):
+            part = t4[:q].contiguous()
+            out["crossover_ms"][f"f32 b{q}"] = {
+                "query_minor": device_ms(lambda: lut_scan.flat_scan(codes, part, N), new4),
+                "lookup": device_ms(lambda: lut_scan.flat_scan_f32_lookup(codes, part, N), old4)}
+        for q in (1, 2, 3, 4, 8, 16, 32):
+            part = t8[:q].contiguous()
+            out["crossover_ms"][f"u8 b{q}"] = {
+                "query_minor": device_ms(lambda: lut_scan.flat_scan8(codes, part, N), new8),
+                "lookup": device_ms(lambda: lut_scan.flat_scan8_lookup(codes, part, N), old8)}
+    finally:
+        lut_scan.QUERY_MINOR_MIN_QUERIES, lut_scan.QUERY_MINOR_MIN_QUERIES8 = floors
+    print(f"query-minor and replaced kernels by batch, device ms: {out['crossover_ms']} (the "
+          f"wrappers take query-minor from {floors[0]} / {floors[1]} queries) [{card}]", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand((512, 128), generator=gen, device=dev) * 500
+    sel = (torch.arange(128, device=dev)[:, None] // 8
+           == torch.arange(16, device=dev)[None, :]).to(torch.float32)
+    out["launch_floor_ms"] = [device_ms(lambda: scan_lab.empty_kernel(dev), "empty_kernel")
+                              for _ in range(10)]
+    out["selector_sum_ms"] = [device_ms(lambda: scan_lab.selector_sum(x, 8), "selector_sum_kernel")
+                              for _ in range(10)]
+    out["matmul_ms"] = [device_ms(lambda: torch.matmul(x, sel), "", whole_call=True)
+                        for _ in range(10)]
+    print(f"launch floor (empty kernel), ten runs, device ms: {out['launch_floor_ms']}; "
+          f"selector_sum {out['selector_sum_ms']}; torch.matmul {out['matmul_ms']} [{card}]",
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -107,6 +188,8 @@ def main() -> int:
         lut_scan.WGMMA_MIN_QUERIES = floor
     print(f"flat_scan by kernel and batch, device ms: {out['crossover_ms']} (the wrapper takes "
           f"wgmma from {floor} queries) [{card}]", flush=True)
+
+    out["query_minor"] = query_minor(codes, dev, card)
 
     arrays, manifest = bench_ivf_arrays(rng)
     index = ivf_index_from_arrays(arrays, manifest, dev)

@@ -458,3 +458,114 @@ def test_flat_scan_wgmma_small_and_wide(cuda, m, q, r_count):
     got = lut_scan.flat_scan(codes, tables, n, True)
     want = lut_scan.flat_scan_lookup(codes, tables, n, True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---- the query-minor flat scans (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh)
+
+
+@pytest.fixture
+def query_minor_at_any_batch(monkeypatch):
+    """The wrappers take the query-minor kernels at every batch."""
+    monkeypatch.setattr(lut_scan, "QUERY_MINOR_MIN_QUERIES", 1)
+    monkeypatch.setattr(lut_scan, "QUERY_MINOR_MIN_QUERIES8", 1)
+
+
+@pytest.mark.parametrize("m", [16, 32])          # 32: 64 queries a chunk
+@pytest.mark.parametrize("q", [1, 31, 33, 128, 300])
+@pytest.mark.parametrize("n_kind", ["mid_row", "zero", "all", "one"])
+def test_flat_scan_query_minor_equals_lookup_kernel(cuda, query_minor_at_any_batch, m, q, n_kind):
+    """The query-minor float kernel against the kernel it replaces and both
+    plain versions, bit for bit, minima and argmin ids; the float minimum is
+    rows_adc's distance of its code."""
+    g = np.random.default_rng(1000 + m + q)
+    cpr = 256 // m
+    r_count = 2051                               # many tiles of 32 rows, the last partial
+    codes = torch.from_numpy(g.integers(0, 256, (r_count, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.random((q, m, 16)).astype(np.float32))
+    tables[: q // 2] = torch.from_numpy(g.integers(0, 4, (q // 2, m, 16)).astype(np.float32))  # ties
+    n = {"mid_row": r_count * cpr - 5 * cpr - 3, "zero": 0, "all": r_count * cpr, "one": 1}[n_kind]
+    dc, dt = codes.to(cuda), tables.to(cuda)
+    before = dict(lut_scan.launches)
+    got_v, got_i = lut_scan.flat_scan(dc, dt, n, True)
+    mins, none = lut_scan.flat_scan(dc, dt, n)
+    old_v, old_i = lut_scan.flat_scan_f32_lookup(dc, dt, n, True)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan_f32"] == before["flat_scan_f32"] + 2
+    assert lut_scan.launches["flat_scan_f32_lookup"] == before["flat_scan_f32_lookup"] + 1
+    assert none is None and torch.equal(mins, got_v)
+    assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+    for plain in (lut_scan.flat_scan_plain, lut_scan.flat_scan_query_minor_plain):
+        want_v, want_i = plain(dc, dt, n, True)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    tlo, thi = ivf.tile_tables_rows(dt)
+    rows = torch.arange(0, r_count, 7, dtype=torch.int32, device=cuda)
+    live = rows.long() * cpr < n
+    for qi in (0, q - 1):
+        d = lut_scan.rows_adc(dc, rows, torch.full_like(rows, qi), tlo, thi)     # (A, cpr)
+        pick = torch.gather(d, 1, (got_i[qi, rows.long()].long() % cpr).clamp(min=0)[:, None])[:, 0]
+        assert torch.equal(pick[live], got_v[qi, rows.long()][live])
+
+
+@pytest.mark.parametrize("m", [4, 8, 16, 32])    # 16, 32: chunks of 16 and 8 queries
+@pytest.mark.parametrize("q", [1, 31, 33, 70])
+@pytest.mark.parametrize("n_kind", ["mid_block", "zero", "all", "one"])
+def test_flat_scan8_query_minor_equals_lookup_kernel(cuda, query_minor_at_any_batch, m, q, n_kind):
+    g = np.random.default_rng(1100 + m + q)
+    n_pad = 256 * 301                            # blocks do not divide among the SMs evenly
+    codes = torch.from_numpy(g.integers(0, 256, (n_pad * m // 128, 128), dtype=np.uint8))
+    tables = torch.from_numpy(g.random((q, m, 256)).astype(np.float32))
+    tables[: q // 2] = torch.from_numpy(g.integers(0, 3, (q // 2, m, 256)).astype(np.float32))
+    tables = tables.to(torch.bfloat16)
+    n = {"mid_block": n_pad - 300, "zero": 0, "all": n_pad, "one": 1}[n_kind]
+    dc, dt = codes.to(cuda), tables.to(cuda)
+    before = dict(lut_scan.launches)
+    got_v, got_i = lut_scan.flat_scan8(dc, dt, n)
+    old_v, old_i = lut_scan.flat_scan8_lookup(dc, dt, n)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan8"] == before["flat_scan8"] + 1
+    assert lut_scan.launches["flat_scan8_lookup"] == before["flat_scan8_lookup"] + 1
+    assert torch.equal(got_v, old_v) and torch.equal(got_i, old_i)
+    for plain in (lut_scan.flat_scan8_plain, lut_scan.flat_scan8_query_minor_plain):
+        want_v, want_i = plain(dc, dt, n)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 131, 133])
+def test_flat_scan8_query_minor_few_blocks(cuda, query_minor_at_any_batch, blocks):
+    """Fewer 256-code blocks than SMs, and one more than them."""
+    g = np.random.default_rng(1200 + blocks)
+    codes = torch.from_numpy(g.integers(0, 256, (blocks * 16, 128), dtype=np.uint8)).to(cuda)
+    tables = torch.from_numpy(g.random((32, 8, 256)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+    got = lut_scan.flat_scan8(codes, tables, blocks * 256 - 7)
+    want = lut_scan.flat_scan8_lookup(codes, tables, blocks * 256 - 7)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_small_batches_keep_the_lookup_kernels(cuda):
+    """Below the measured thresholds flat_scan and flat_scan8 run the kernels
+    of flat_scan.cu / flat_scan8.cu under their own launch counts."""
+    g = np.random.default_rng(14)
+    codes = torch.from_numpy(g.integers(0, 256, (64, 128), dtype=np.uint8)).to(cuda)
+    t4 = torch.from_numpy(g.random((1, 16, 16)).astype(np.float32)).to(cuda)
+    t8 = torch.from_numpy(g.random((1, 8, 256)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+    before = dict(lut_scan.launches)
+    a, b = lut_scan.flat_scan(codes, t4, 1000), lut_scan.flat_scan_f32_lookup(codes, t4, 1000)
+    c, d = lut_scan.flat_scan8(codes, t8, 1000), lut_scan.flat_scan8_lookup(codes, t8, 1000)
+    assert torch.equal(a[0], b[0]) and torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
+    for key in ("flat_scan_f32", "flat_scan_f32_lookup", "flat_scan8", "flat_scan8_lookup"):
+        assert lut_scan.launches[key] == before[key] + 1
+
+
+def test_query_minor_lab_on_card(cuda):
+    """Every chunk of both query-minor scans equals the replaced kernel, the
+    copy modes write their sentinels, every other mode and the empty kernel
+    launch (scan_lab.check_query_minor raises otherwise)."""
+    g = np.random.default_rng(15)
+    codes = torch.from_numpy(g.integers(0, 256, (304, 128), dtype=np.uint8)).to(cuda)
+    t4 = torch.from_numpy(g.random((130, 16, 16)).astype(np.float32)).to(cuda)
+    t8 = torch.from_numpy(g.random((33, 8, 256)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+    before = dict(lut_scan.launches)
+    scan_lab.check_query_minor(codes, t4, t8, 304 * 16 - 21)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["scan_lab"] == before["scan_lab"] + 6 + len(scan_lab.QM_LAB_MODES)
+    assert lut_scan.launches["empty_kernel"] == before["empty_kernel"] + 1

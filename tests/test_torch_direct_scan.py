@@ -5,6 +5,12 @@ tile_min=32), its (QA*cpr, rpp) c-major output mapped to code order.
 Tolerance: rtol 1e-6, atol 1e-5 * max (float32 sums of 16 terms in another
 order); MASK_BIG placement exact; the port's 32-code tile minima equal the
 minima of its own output exactly.
+
+The b=1 tie case: integer-valued centroids and query make many probed codes
+share a distance. Distances equal the reference's exactly; labels are compared
+by distance plateau, because neither package orders a plateau by a rule: both
+rank through exact_tile_screen (a cut over tile minima, then a top-k over the
+kept tiles), and neither result is the stable sort of its own column order.
 """
 
 import jax.numpy as jnp
@@ -14,6 +20,8 @@ import torch
 
 from qadc_tpu.index import ivf as jivf
 from qadc_tpu.kernels import lut_scan as jls
+from qadc_tpu.quantizers.pq import ProductQuantizer
+from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.kernels import lut_scan
 from qadc_tpu_torch.ops.topk import exact_screen_smallest, exact_tile_screen
 from torch_parity import EMPTY_PART, TINY_PART, TINY_SIZE, synthetic_index, to_port, trained_index
@@ -87,3 +95,57 @@ def test_direct_path_uses_tile_minima_exactly():
     ev, eidx = exact_screen_smallest(row, 100)
     torch.testing.assert_close(sv, ev, rtol=0, atol=0)
     torch.testing.assert_close(idx, eidx, rtol=0, atol=0)
+
+
+def _tie_index(seed):
+    """A JAX IVF index (4 partitions of 512 slots: full, partial, empty,
+    small; 16x4 PQ, dim 32) whose centroids are 0/1-valued and whose coarse
+    centroids and query are small integers: every distance is a small integer."""
+    rng = np.random.default_rng(seed)
+    parts, part_pad, dim, m = 4, 512, 32, 16
+    sizes = np.array([512, 300, 0, 77], np.int32)
+    codes = rng.integers(0, 256, size=(parts, part_pad, 8), dtype=np.uint8)
+    labels = rng.permutation(parts * part_pad).astype(np.int32).reshape(parts, part_pad)
+    for p, size in enumerate(sizes):  # tail padding repeats the last code / label
+        codes[p, size:] = codes[p, size - 1] if size else 0
+        labels[p, size:] = labels[p, size - 1] if size else 0
+    index = jivf.IVFIndex(
+        pq=ProductQuantizer(centroids=jnp.asarray(
+            rng.integers(0, 2, size=(m, 16, dim // m)).astype(np.float32)), sq_bits=4),
+        coarse_centroids=jnp.asarray(rng.integers(-2, 3, size=(parts, dim)).astype(np.float32)),
+        codes=jnp.asarray(codes.reshape(parts, -1, 128)), labels=jnp.asarray(labels),
+        part_sizes=jnp.asarray(sizes), n=int(sizes.sum()), max_part_size=512)
+    return index, rng.integers(-1, 2, size=(1, dim)).astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [20, 100])
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_direct_b1_ties_labels_match_reference(seed, r):
+    jindex, query = _tie_index(seed)
+    ma = 3
+    jd, jl = jivf.search_qadc(jindex, jnp.asarray(query), r=r, ma=ma, keep=0.05, direct=True,
+                              interpret=True)
+    td, tl = ivf.search_qadc(to_port(jindex), query, r=r, ma=ma, keep=0.05, direct=True)
+    jd, jl, td, tl = np.asarray(jd)[0], np.asarray(jl)[0], td.numpy()[0], tl.numpy()[0]
+    np.testing.assert_array_equal(td, jd)              # integer sums: no rounding anywhere
+    values, counts = np.unique(jd, return_counts=True)
+    assert counts.max() >= 3 and len(values) < r       # plateaus, not a strict ranking
+    # Every real probed code's distance, by label: what a plateau may hold.
+    parts, rot = jivf.assign_queries(jindex, jnp.asarray(query), ma)
+    tables = np.asarray(jivf.adc_tables(rot, jindex.pq.centroids)).reshape(ma, 16, 16)
+    exact = {}
+    for a, p in enumerate(np.asarray(parts).reshape(ma)):
+        size = int(jindex.part_sizes[p])
+        code = np.asarray(jindex.codes).reshape(4, 512, 8)[p, :size].astype(np.int64)
+        d = sum(tables[a, 2 * b][code[:, b] & 15] + tables[a, 2 * b + 1][code[:, b] >> 4]
+                for b in range(8))
+        exact.update(zip(np.asarray(jindex.labels)[p, :size].tolist(), d.tolist()))
+    for labels in (jl, tl):                            # each label carries its own distance
+        assert len(set(labels.tolist())) == r
+        np.testing.assert_array_equal([exact[label] for label in labels.tolist()], jd)
+    # Plateaus wholly inside the cut hold the same labels in both packages;
+    # the last one is cut somewhere inside a tie, where any of its codes is right.
+    for value in values[:-1]:
+        assert set(jl[jd == value].tolist()) == set(tl[td == value].tolist()), value
+    below = sum(1 for d in exact.values() if d < values[-1])
+    assert below == int((jd < values[-1]).sum())

@@ -20,6 +20,12 @@ mode, on identical codes and tables.
 The real code count n = 3997 is not a multiple of any cpr, so every case has
 a partly real row and rows of padding. A last-code flood case shows the
 reference's padded argmin that the port's kernel 9 never returns.
+
+The float32 and 8-bit cases run twice: through the wrappers (the plain
+versions, on the CPU) and, as the _query_minor tests, through
+flat_scan_query_minor_plain / flat_scan8_query_minor_plain, the walk of the
+query-minor kernels (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh), at the same
+tolerances.
 """
 
 import functools
@@ -88,9 +94,19 @@ def _jax_scan4(codes_rows, tables, planes: bool):
 @pytest.mark.parametrize("f32", [False, True], ids=["int8", "f32"])
 @pytest.mark.parametrize("m", [16, 32])
 def test_flat_scan_matches_reference(m, f32, planes):
+    _flat_scan_matches_reference(lut_scan.flat_scan, m, f32, planes)
+
+
+@pytest.mark.parametrize("planes", [True, False], ids=["tq", "row128"])
+@pytest.mark.parametrize("m", [16, 32])
+def test_flat_scan_query_minor_matches_reference(m, planes):
+    _flat_scan_matches_reference(lut_scan.flat_scan_query_minor_plain, m, True, planes)
+
+
+def _flat_scan_matches_reference(scan, m, f32, planes):
     codes = _codes(m // 2)
     tables = _tables4(m, f32)
-    got, idx = lut_scan.flat_scan(torch.from_numpy(codes), torch.from_numpy(tables), N)
+    got, idx = scan(torch.from_numpy(codes), torch.from_numpy(tables), N)
     assert idx is None and got.dtype == (torch.float32 if f32 else torch.int32)
     got = got.numpy()
     cpr = 256 // m
@@ -108,12 +124,20 @@ def test_flat_scan_matches_reference(m, f32, planes):
 @pytest.mark.parametrize("f32", [False, True], ids=["int8", "f32"])
 @pytest.mark.parametrize("m", [16, 32])
 def test_flat_scan_with_rows_matches_reference(m, f32):
+    _flat_scan_with_rows_matches_reference(lut_scan.flat_scan, m, f32)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_flat_scan_query_minor_with_rows_matches_reference(m):
+    _flat_scan_with_rows_matches_reference(lut_scan.flat_scan_query_minor_plain, m, True)
+
+
+def _flat_scan_with_rows_matches_reference(scan, m, f32):
     codes = _codes(m // 2)
     tables = _tables4(m, f32)
     cb = m // 2
     cpr = 128 // cb
-    mins, idx = lut_scan.flat_scan(torch.from_numpy(codes), torch.from_numpy(tables), N,
-                                   with_rows=True)
+    mins, idx = scan(torch.from_numpy(codes), torch.from_numpy(tables), N, with_rows=True)
     tlo, thi = jls.build_scan_tables(jnp.asarray(tables))
     if f32:
         tlo, thi = tlo.astype(jnp.float32), thi.astype(jnp.float32)
@@ -140,9 +164,17 @@ def test_flat_scan_with_rows_matches_reference(m, f32):
 def test_flat_scan_float_minimum_is_rows_adc_distance():
     """Float minima equal rows_adc's distance of their argmin bit for bit,
     which makes the adc4 path's r-window screen exact."""
+    _float_minimum_is_rows_adc_distance(lut_scan.flat_scan)
+
+
+def test_flat_scan_query_minor_float_minimum_is_rows_adc_distance():
+    _float_minimum_is_rows_adc_distance(lut_scan.flat_scan_query_minor_plain)
+
+
+def _float_minimum_is_rows_adc_distance(scan):
     codes, tables = _codes(8), _tables4(16, True)
     tc, tt = torch.from_numpy(codes), torch.from_numpy(tables)
-    mins, idx = lut_scan.flat_scan(tc, tt, N, with_rows=True)
+    mins, idx = scan(tc, tt, N, with_rows=True)
     from qadc_tpu_torch.index.ivf import tile_tables_rows
 
     tlo, thi = tile_tables_rows(tt)
@@ -173,10 +205,19 @@ def _tables8(m: int, seed: int) -> np.ndarray:
 
 @pytest.mark.parametrize("m", [4, 8, 16, 32])
 def test_flat_scan8_matches_reference(m):
+    _flat_scan8_matches_reference(lut_scan.flat_scan8, m)
+
+
+@pytest.mark.parametrize("m", [4, 8, 16, 32])
+def test_flat_scan8_query_minor_matches_reference(m):
+    _flat_scan8_matches_reference(lut_scan.flat_scan8_query_minor_plain, m)
+
+
+def _flat_scan8_matches_reference(scan, m):
     codes = _codes(m)
     tables = _tables8(m, 50 + m)
     tb = torch.from_numpy(tables).to(torch.bfloat16)
-    got_v, got_i = lut_scan.flat_scan8(torch.from_numpy(codes), tb, N)
+    got_v, got_i = scan(torch.from_numpy(codes), tb, N)
     got_v, got_i = got_v.numpy(), got_i.numpy()
     want_v, want_i = jls.lut_scan8_reduce(
         jnp.asarray(codes), jls.build_scan8_tables(jnp.asarray(tables)), m=m,
