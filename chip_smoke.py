@@ -16,8 +16,13 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      card, at the shapes the search gives it (M1 at b=32's and b=128's
      routed groups, by the tensor-core kernel and by the lookup kernel;
      M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs; M1
-     with float tables and grouped_scan8 at search_adc's b=32 groups on the
-     16x4 and 8x8 indexes; flat_scan with int8 tables, with and without
+     with float tables and grouped_scan8 on the 16x4 and 8x8 indexes, by
+     their slot-minor kernels and by the kernels they replaced (the _lookup
+     arms, timed beside them), at search_adc's routed groups of 32 and 128
+     queries and at a hot partition (128 near-duplicate queries: whole
+     groups of 128 live slots), held with torch.equal to each other and to
+     their walk in PyTorch (the _slot_minor_plain versions); flat_scan with
+     int8 tables, with and without
      argmin rows, by the warpgroup kernel at b=128, the mma.sync kernel at
      b=32 and the lookup kernel at both, and with float tables over the 1M
      flat 16x4 codes at b=128, and flat_scan8 over the flat 8x8 codes at b=32:
@@ -61,7 +66,8 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      required) and the float32 selector sum against float64 (1e-6); the
      query-minor scans at every chunk of queries and with parts removed, and
      an empty kernel (the device time of a launch); printed as one
-     `scan_lab` line.
+     `scan_lab` line; the grouped scans' lab modes (scan_lab.GROUPED_LAB_MODES)
+     at search_adc's b=32 groups.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -128,10 +134,11 @@ PATH_KERNELS = {
                  "flat_scan8_lookup", "empty_kernel"),
 }
 # The replaced kernels are A/B instruments: no search path may launch them.
-LOOKUP_ONLY = ("grouped_scan_lookup", "flat_scan_lookup", "flat_scan_f32_lookup",
-               "flat_scan8_lookup")
+LOOKUP_ONLY = ("grouped_scan_lookup", "grouped_scan_f32_lookup", "grouped_scan8_lookup",
+               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
+           "grouped_scan_f32_lookup": "adc4", "grouped_scan8_lookup": "adc8",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
            "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
            "flat_scan_lookup": "flat_qadc", "flat_scan_f32_lookup": "flat_adc4",
@@ -443,24 +450,23 @@ def main() -> int:
                    ((8, bench_ivf8_arrays), (16, bench_ivf16_arrays))}
     adc_indexes[4] = index
     qadc = queries[ADC_BATCH]
+    gen_hot = torch.Generator(device=device).manual_seed(3)
 
-    def adc_group_args(ix):
-        p, rot = ivf.assign_queries(ix, qadc, MA)
-        t = ivf.adc_tables(rot, ix.pq.centroids).reshape(qadc.shape[0] * MA, ix.pq.sq_count, -1)
+    def adc_group_args(ix, qs):
+        p, rot = ivf.assign_queries(ix, qs, MA)
+        t = ivf.adc_tables(rot, ix.pq.centroids).reshape(qs.shape[0] * MA, ix.pq.sq_count, -1)
         rt = route_queries(p, ix.part_count, 128)
         return p, t, (rt.group_part, rt.slot_pairs(), ivf._group_sizes(ix, rt))
 
-    p4, t4, groups4 = adc_group_args(index)
-    m1f_args = (index.codes, t4, *groups4)
-    kernel_phase("grouped_scan_f32", "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu",
-                 "qadc_tpu/kernels/lut_scan.py:857",
-                 lambda: lut_scan.grouped_scan(*m1f_args),
-                 lambda: lut_scan.grouped_scan_plain(*m1f_args),
-                 lambda got, want: inf_float_err(torch, got, want, "grouped_scan_f32"),
-                 *grouped_work(index, p4, t4, groups4), PEAK_F32)
-
-    p8, t8, groups8 = adc_group_args(adc_indexes[8])
-    m8_args = (adc_indexes[8].codes, t8.to(torch.bfloat16), *groups8)
+    # The slot-minor kernels (grouped_scan_f32, grouped_scan8) and the kernels
+    # they replaced (the _lookup arms) at three routings: search_adc's b=32
+    # groups (~3 live slots), b=128's (~12), and a hot partition: 128
+    # near-duplicate queries, so each of their 24 probed partitions fills a
+    # whole group of 128 live slots.
+    hot = queries[1] + 1e-3 * torch.randn((128, 128), generator=gen_hot, device=device)
+    grouped_shapes = {"b=32": qadc, "b=128": queries[128], "hot": hot}
+    f32_src = "qadc_tpu_torch/csrc/grouped_scan_sm.cu"
+    u8_src = "qadc_tpu_torch/csrc/grouped_scan8_sm.cu"
 
     def scan8_err(got, want):
         (gv, gi), (wv, wi) = got, want
@@ -469,11 +475,53 @@ def main() -> int:
         check(torch.equal(gi[same], wi[same]), "grouped_scan8 argmin indices")
         return err
 
-    kernel_phase("grouped_scan8", "grouped_scan8_kernel", "qadc_tpu_torch/csrc/grouped_scan8.cu",
-                 "qadc_tpu/kernels/lut_scan.py:1872",
-                 lambda: lut_scan.grouped_scan8(*m8_args),
-                 lambda: lut_scan.grouped_scan8_plain(*m8_args), scan8_err,
-                 *grouped_work(adc_indexes[8], p8, m8_args[1], groups8), PEAK_F32)
+    grouped_args = {}
+    for tag, qs in grouped_shapes.items():
+        for bits, ix in ((4, index), (8, adc_indexes[8])):
+            p, t, groups = adc_group_args(ix, qs)
+            args = (ix.codes, t if bits == 4 else t.to(torch.bfloat16), *groups)
+            grouped_args[bits, tag] = args, p
+            live = (groups[1] >= 0).sum(1)
+            mean = float(live[live > 0].float().mean())
+            print(f"grouped {bits}-bit [{tag}]: {int((live > 0).sum())} live groups of "
+                  f"{groups[1].shape[0]}, live slots mean {mean:.2f} max {int(live.max())}",
+                  flush=True)
+            # The new kernel equals the arm and its own walk in PyTorch bit for
+            # bit, minima and argmin ids (the plain versions: the kernel phases).
+            if bits == 4:
+                got, arm = lut_scan.grouped_scan(*args), lut_scan.grouped_scan_f32_lookup(*args)
+                walk = lut_scan.grouped_scan_slot_minor_plain(*args)
+                check(torch.equal(got, arm) and torch.equal(got, walk),
+                      f"grouped_scan_f32[{tag}] differs from its arm or its slot-minor walk")
+            else:
+                got, arm = lut_scan.grouped_scan8(*args), lut_scan.grouped_scan8_lookup(*args)
+                walk = lut_scan.grouped_scan8_slot_minor_plain(*args)
+                check(all(torch.equal(a, b) for x in (arm, walk) for a, b in zip(got, x)),
+                      f"grouped_scan8[{tag}] differs from its arm or its slot-minor walk")
+            del got, arm, walk
+            suffix = "" if tag == "b=32" else f"[{tag}]"
+            if bits == 4:
+                rows = (("grouped_scan_f32", lut_scan.grouped_scan, "grouped_scan_sm_kernel",
+                         f32_src, REPS),
+                        ("grouped_scan_f32_lookup", lut_scan.grouped_scan_f32_lookup,
+                         "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu", ARM_REPS))
+                plain = lut_scan.grouped_scan_plain
+                compare = lambda got, want: inf_float_err(  # noqa: E731
+                    torch, got, want, "grouped_scan_f32")
+                replaces = "qadc_tpu/kernels/lut_scan.py:857"
+            else:
+                rows = (("grouped_scan8", lut_scan.grouped_scan8, "grouped_scan8_sm_kernel",
+                         u8_src, REPS),
+                        ("grouped_scan8_lookup", lut_scan.grouped_scan8_lookup,
+                         "grouped_scan8_kernel", "qadc_tpu_torch/csrc/grouped_scan8.cu", ARM_REPS))
+                plain, compare = lut_scan.grouped_scan8_plain, scan8_err
+                replaces = "qadc_tpu/kernels/lut_scan.py:1872"
+            for name, fn, cu_name, src, reps in rows:
+                kernel_phase(name + suffix, cu_name, src, replaces,
+                             lambda fn=fn, args=args: fn(*args),
+                             lambda plain=plain, args=args: plain(*args), compare,
+                             *grouped_work(ix, p, args[1], groups), PEAK_F32, reps=reps)
+    m1f_args, m8_args = grouped_args[4, "b=32"][0], grouped_args[8, "b=32"][0]
 
     # The flat scans over the 1M-code flat indexes, at their searches' shapes.
     flat_indexes = {bits: flat_index_from_arrays(*bench_flat_arrays(rng, m, bits, FLAT_N), device)
@@ -675,6 +723,9 @@ def main() -> int:
     for bits in (4, 8, 16):
         path = f"adc{bits}"
         d, lab = got = drive(path, lambda: search_adc(bits))
+        # One grouped scan a search, by the slot-minor kernel (the arms: none).
+        for scan in PATH_KERNELS[path]:
+            check(scan == "rows_adc" or launches[path][scan] == 1, f"{path}: {scan} launches")
         plain_overlap = check_vs_plain(path, ADC_BATCH, got, search_adc(bits, lut_scan.PLAIN))
         od, ol = want = oracle(torch, adc_indexes[bits], qadc, code_view, unpack_codes, ivf)
         top1, ov = check_vs_oracle(path, bits, got, want)
@@ -908,6 +959,7 @@ def main() -> int:
 
     def lab_checks():
         scan_lab.check_query_minor(fw.codes, wft, wt8, fw.n)
+        scan_lab.check_grouped(m1f_args, m8_args)
         return scan_lab.check(fw.codes, wqt, fw.n)
 
     lab_out = drive("scan_lab", lab_checks)
@@ -941,6 +993,29 @@ def main() -> int:
                      f"qadc_tpu/kernels/lut_scan.py:{522 if scan == 'f32' else 1601}",
                      lambda mode=mode, tab=tab: scan_lab.query_minor_lab(fw.codes, tab, fw.n, mode),
                      None, None, moved, 0 if number == 1 else adds, peak)
+    # The grouped scans' modes at search_adc's b=32 groups (adc4's, adc8's).
+    # An empty mode writes nothing: its phase returns no output, and its bound
+    # is the routing it reads.
+    def grouped_lab_run(args, mode):
+        out = scan_lab.grouped_lab(*args, mode)
+        return None if scan_lab.GROUPED_LAB_MODES[mode][2] is None else out
+
+    for mode, (scan, kern, number, _) in scan_lab.GROUPED_LAB_MODES.items():
+        bits = 4 if scan == "f32" else 8
+        (args, probes), ix = grouped_args[bits, "b=32"], adc_indexes[bits]
+        moved, adds = grouped_work(ix, probes, args[1], args[2:])
+        if number is None:
+            moved, adds = nbytes(*args[2:]), 0
+        kernel_phase(f"scan_lab[grouped_{mode}]", scan_lab.GROUPED_LAB_KERNELS[scan, kern],
+                     (f32_src if scan == "f32" else u8_src) if kern == "sm" else
+                     f"qadc_tpu_torch/csrc/grouped_scan{'' if bits == 4 else '8'}.cu",
+                     f"qadc_tpu/kernels/lut_scan.py:{947 if bits == 4 else 1970}",
+                     lambda mode=mode, args=args: grouped_lab_run(args, mode),
+                     # quad computes the scan itself: held to its plain version
+                     ((lambda args=args: lut_scan.grouped_scan_plain(*args))
+                      if number == 4 else None),
+                     lambda got, want: inf_float_err(torch, got, want, f"grouped {mode}"),
+                     moved, 0 if number == 1 else adds, PEAK_F32)
     kernel_phase("empty_kernel", "empty_kernel", qm_src, "benchmarks/kernel_lab.py:70",
                  lambda: scan_lab.empty_kernel(device), None, None, 0, 0, PEAK_F32)
     gen = torch.Generator(device=device).manual_seed(11)

@@ -1,7 +1,7 @@
 // The 4-bit ADC sum of one code, shared by the 4-bit scans (grouped_scan.cu,
-// flat_scan.cu, flat_scan_window.cu, flat_scan_qm.cuh) so that the float sum order has a single
-// definition: over
-// code bytes b = 0..CB-1, the even sub-quantizer's entry (low nibble), then
+// grouped_scan_sm.cu, flat_scan.cu, flat_scan_window.cu, flat_scan_qm.cuh) so
+// that the float sum order has a single definition: over code bytes b =
+// 0..CB-1, the even sub-quantizer's entry (low nibble), then
 // the odd one's (high nibble). That is rows_adc's order (rows_adc.cu), so a
 // float minimum of a scan is bit for bit the rerank's distance of its code.
 //
@@ -119,12 +119,16 @@ struct LdsF32<4> {
 };
 
 // Distances of code c (< 128 / CB) of the row held in w for the lane's QPL
-// queries. Call it with a compile-time c, as adc4_sum.
-template <int CB, int QPL>
-__device__ __forceinline__ void adc4_sum_query_minor(const uint32_t (&w)[32], int c,
-                                                     uint32_t lane_addr, float (&acc)[QPL]) {
-  constexpr int S = QPL == 1 ? 7 : QPL == 2 ? 8 : 9;  // log2 of one entry's bytes
-  constexpr uint32_t kSubq = 16u << S;                // bytes of one sub-quantizer's 16 entries
+// tables, where one entry of the minor-axis layout [2*CB][16][minor] spans
+// 1 << SHIFT bytes (SHIFT: log2 of the minor axis' float32 bytes) and the
+// table lies at a shared address aligned to 16 << SHIFT, lane_addr being that
+// base plus the lane's own bytes (< 1 << SHIFT). Used by the query-minor flat
+// scan (a lane is QPL queries) and the grouped scan lab's slot-minor variant
+// (grouped_scan_sm.cu). Call it with a compile-time c, as adc4_sum.
+template <int CB, int QPL, int SHIFT>
+__device__ __forceinline__ void adc4_sum_minor(const uint32_t (&w)[32], int c,
+                                               uint32_t lane_addr, float (&acc)[QPL]) {
+  constexpr uint32_t kSubq = 16u << SHIFT;  // bytes of one sub-quantizer's 16 entries
 #pragma unroll
   for (int i = 0; i < QPL; ++i) acc[i] = 0.0f;
 #pragma unroll
@@ -133,14 +137,63 @@ __device__ __forceinline__ void adc4_sum_query_minor(const uint32_t (&w)[32], in
     const uint32_t word = w[byte_idx >> 2];
     const int bit = (byte_idx & 3) * 8;
     float lo[QPL], hi[QPL];
-    LdsF32<QPL>::load((field_offset<S>(word, bit, 15u) | lane_addr) + (2 * b) * kSubq, lo);
-    LdsF32<QPL>::load((field_offset<S>(word, bit + 4, 15u) | lane_addr) + (2 * b + 1) * kSubq, hi);
+    LdsF32<QPL>::load((field_offset<SHIFT>(word, bit, 15u) | lane_addr) + (2 * b) * kSubq, lo);
+    LdsF32<QPL>::load((field_offset<SHIFT>(word, bit + 4, 15u) | lane_addr) + (2 * b + 1) * kSubq,
+                      hi);
 #pragma unroll
     for (int i = 0; i < QPL; ++i) {
       acc[i] += lo[i];  // even sub-quantizer: low nibble
       acc[i] += hi[i];  // odd sub-quantizer: high nibble
     }
   }
+}
+
+// The same sum for up to 4 slots at once, their tables in shared memory as
+// [2][2*CB][16][2] float32 (slot pair, sub-quantizer, centroid, slot of the
+// pair) at a 32-bit address `tab` aligned to 128 bytes. A lookup is an
+// 8-byte load a slot pair (PAIRS of them: 1 sums slots 0 and 1 only, and
+// leaves acc[2], acc[3] at 0), and the 16 entries of one slot pair's
+// sub-quantizer fill 128 bytes: the 16 lanes that one 8-byte load serves at a
+// time hit distinct banks whatever their nibbles (grouped_scan_sm.cu: a lane
+// is a storage row). Call it with a compile-time c, as adc4_sum.
+template <int CB, int PAIRS>
+__device__ __forceinline__ void adc4_sum_slot_pairs(const uint32_t (&w)[32], int c, uint32_t tab,
+                                                    float (&acc)[4]) {
+  constexpr uint32_t kSubq = 16u * 8u;            // bytes of a slot pair's sub-quantizer
+  constexpr uint32_t kPair = 2u * CB * kSubq;     // bytes of a slot pair's tables
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int b = 0; b < CB; ++b) {
+    const int byte_idx = c * CB + b;
+    const uint32_t word = w[byte_idx >> 2];
+    const int bit = (byte_idx & 3) * 8;
+    const uint32_t lo = (field_offset<3>(word, bit, 15u) | tab) + (2 * b) * kSubq;
+    const uint32_t hi = (field_offset<3>(word, bit + 4, 15u) | tab) + (2 * b + 1) * kSubq;
+    float l[4] = {0.0f, 0.0f, 0.0f, 0.0f}, h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int p = 0; p < PAIRS; ++p) {
+      float lp[2], hp[2];
+      LdsF32<2>::load(lo + p * kPair, lp);
+      LdsF32<2>::load(hi + p * kPair, hp);
+      l[2 * p] = lp[0];
+      l[2 * p + 1] = lp[1];
+      h[2 * p] = hp[0];
+      h[2 * p + 1] = hp[1];
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * PAIRS; ++i) {
+      acc[i] += l[i];  // even sub-quantizer: low nibble
+      acc[i] += h[i];  // odd sub-quantizer: high nibble
+    }
+  }
+}
+
+// The query-minor flat scan's sum: the minor axis is a chunk of 32 * QPL queries.
+template <int CB, int QPL>
+__device__ __forceinline__ void adc4_sum_query_minor(const uint32_t (&w)[32], int c,
+                                                     uint32_t lane_addr, float (&acc)[QPL]) {
+  adc4_sum_minor<CB, QPL, QPL == 1 ? 7 : QPL == 2 ? 8 : 9>(w, c, lane_addr, acc);
 }
 
 }  // namespace qadc

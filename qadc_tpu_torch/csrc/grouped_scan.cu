@@ -33,20 +33,27 @@
 // (eight 16-byte loads) and loops over the chunk's live slots; for each it
 // sums the lookups of each code and keeps the minimum over the row's real
 // codes. A chunk with no live slot returns at once.
+//
+// The float instantiation is no search path's kernel: the slot-minor kernel
+// of grouped_scan_sm.cu serves float tables, and this one stays as its A/B
+// arm (lut_scan.grouped_scan_f32_lookup), with the lab modes of
+// qadc_grouped_scan_lab. The int8 one is lut_scan.grouped_scan_lookup.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "adc4_sum.cuh"
+#include "flat_scan_qm.cuh"  // QmMode (lab modes)
 #include "slot_chunks.cuh"
 
 namespace {
 
 using qadc::Acc;
+using namespace qadc;
 
 constexpr int kRowsPerBlock = 128;
 
-template <int CB, typename T>
+template <int CB, typename T, int MODE>
 __global__ void __launch_bounds__(kRowsPerBlock)
 grouped_scan_kernel(const uint8_t* __restrict__ codes,       // (P, rpp, 128)
                     const T* __restrict__ tables,            // (QA, 2*CB, 16)
@@ -54,7 +61,7 @@ grouped_scan_kernel(const uint8_t* __restrict__ codes,       // (P, rpp, 128)
                     const int32_t* __restrict__ slot_pair,   // (gcap, G), -1 = empty
                     const int32_t* __restrict__ group_sizes, // (gcap,) real codes
                     typename Acc<T>::type* __restrict__ out, // (QA, rpp)
-                    int rpp, int group_size, int chunk) {
+                    int rpp, int group_size, int chunk, uint32_t keep) {
   using A = typename Acc<T>::type;
   constexpr int kTable = 2 * CB * 16;  // entries of one pair's table
   constexpr int kTableBytes = kTable * static_cast<int>(sizeof(T));
@@ -82,21 +89,36 @@ grouped_scan_kernel(const uint8_t* __restrict__ codes,       // (P, rpp, 128)
   uint32_t w[32];
   qadc::load_row(codes + (static_cast<size_t>(group_part[g]) * rpp + row) * 128, w);
 
+  if (MODE == kQmConstCode) {
+#pragma unroll
+    for (int k = 0; k < 32; ++k) w[k] = (w[k] & keep) | 0x5A5A5A5Au;
+  }
   for (int s = 0; s < n; ++s) {
     const int p = s_pair[s];
     if (p < 0) continue;  // uniform across the block
     const T* t = s_tab + s * kTable;
-    A best = Acc<T>::none();
+    A best = MODE == kQmNoMin ? A(0) : Acc<T>::none();
+    if (MODE == kQmCopy) {
+      uint32_t bits = 0;
 #pragma unroll
-    for (int c = 0; c < kCpr; ++c) {
-      const A acc = qadc::adc4_sum<CB>(w, c, t);
-      if (c < real && acc < best) best = acc;
+      for (int k = 0; k < 32; ++k) bits += __popc(w[k]);
+      if (bits > 1024u) best = A(0);  // never: keeps the loads
+    } else {
+#pragma unroll
+      for (int c = 0; c < kCpr; ++c) {
+        const A acc = qadc::adc4_sum<CB>(w, c, t);
+        if (MODE == kQmNoMin) {
+          best += acc;
+        } else if (c < real && acc < best) {
+          best = acc;
+        }
+      }
     }
     out[static_cast<size_t>(p) * rpp + row] = best;
   }
 }
 
-template <int CB, typename T>
+template <int CB, typename T, int MODE = kQmFull>
 cudaError_t launch(const void* codes, const void* tables, const void* group_part,
                    const void* slot_pair, const void* group_sizes, void* out, int gcap,
                    int group_size, int rpp, cudaStream_t stream) {
@@ -104,15 +126,16 @@ cudaError_t launch(const void* codes, const void* tables, const void* group_part
   const qadc::SlotChunks chunks = qadc::slot_chunks(group_size, kSlotBytes);
   const size_t smem = static_cast<size_t>(chunks.chunk) * kSlotBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_scan_kernel<CB, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grouped_scan_kernel<CB, T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(gcap, (rpp + kRowsPerBlock - 1) / kRowsPerBlock, chunks.count);
-  grouped_scan_kernel<CB, T><<<grid, kRowsPerBlock, smem, stream>>>(
+  grouped_scan_kernel<CB, T, MODE><<<grid, kRowsPerBlock, smem, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const T*>(tables),
       static_cast<const int32_t*>(group_part), static_cast<const int32_t*>(slot_pair),
       static_cast<const int32_t*>(group_sizes),
-      static_cast<typename Acc<T>::type*>(out), rpp, group_size, chunks.chunk);
+      static_cast<typename Acc<T>::type*>(out), rpp, group_size, chunks.chunk,
+      0u);  // lab mode const_code: every code byte 0x5A, the loads kept
   return cudaGetLastError();
 }
 
@@ -138,4 +161,28 @@ extern "C" int qadc_grouped_scan(const void* codes, const void* tables,
     return launch<16, float>(codes, tables, group_part, slot_pair, group_sizes, out, gcap,
                              group_size, rpp, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The scan lab: the float kernel at cb 8 (16x4 PQ) with parts removed (mode:
+// a qadc::QmMode, 1 copy, 2 no_min, 3 const_code). Only copy's output (+inf
+// for every live pair's row) is defined.
+extern "C" int qadc_grouped_scan_lab(const void* codes, const void* tables,
+                                     const void* group_part, const void* slot_pair,
+                                     const void* group_sizes, void* out, int gcap,
+                                     int group_size, int rpp, int mode, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (group_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kQmCopy:
+      return launch<8, float, kQmCopy>(codes, tables, group_part, slot_pair, group_sizes, out,
+                                       gcap, group_size, rpp, s);
+    case kQmNoMin:
+      return launch<8, float, kQmNoMin>(codes, tables, group_part, slot_pair, group_sizes, out,
+                                        gcap, group_size, rpp, s);
+    case kQmConstCode:
+      return launch<8, float, kQmConstCode>(codes, tables, group_part, slot_pair, group_sizes,
+                                            out, gcap, group_size, rpp, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

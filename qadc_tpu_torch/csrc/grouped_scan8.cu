@@ -27,14 +27,21 @@
 // slot_chunks.cuh); each thread holds its window's codes in registers (at most
 // 128 bytes) and loops over the chunk's live slots. A chunk with no live slot
 // returns at once.
+//
+// No search path launches this kernel: the slot-minor kernel of
+// grouped_scan8_sm.cu replaces it, and it stays as that kernel's A/B arm
+// (lut_scan.grouped_scan8_lookup), with the lab modes of qadc_grouped_scan8_lab.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "flat_scan_qm.cuh"  // QmMode (lab modes)
 #include "slot_chunks.cuh"
 
 namespace {
+
+using namespace qadc;
 
 constexpr int kThreads = 128;
 
@@ -67,7 +74,7 @@ __device__ __forceinline__ float bf16_to_float(uint16_t v) {
   return __uint_as_float(static_cast<uint32_t>(v) << 16);
 }
 
-template <int M>
+template <int M, int MODE>
 __global__ void __launch_bounds__(kThreads)
 grouped_scan8_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
                      const uint16_t* __restrict__ tables,      // (QA, M, 256) bf16
@@ -76,7 +83,7 @@ grouped_scan8_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
                      const int32_t* __restrict__ group_sizes,  // (gcap,) real codes
                      float* __restrict__ out_min,              // (QA, rpp * cs)
                      int32_t* __restrict__ out_idx,            // (QA, rpp * cs)
-                     int rpp, int group_size, int chunk) {
+                     int rpp, int group_size, int chunk, uint32_t keep) {
   constexpr int kCpr = 128 / M;
   constexpr int kWin = kCpr < 8 ? kCpr : 8;
   constexpr int kCs = kCpr / kWin;
@@ -113,15 +120,25 @@ grouped_scan8_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
   uint32_t w[kWin * kWords];
 #pragma unroll
   for (int k = 0; k < kWin; ++k) Words<kWords>::load(src + (c0 + k * kCs) * kWords, w + k * kWords);
+  if (MODE == kQmConstCode) {
+#pragma unroll
+    for (int k = 0; k < kWin * kWords; ++k) w[k] = (w[k] & keep) | 0x5A5A5A5Au;
+  }
 
   for (int s = 0; s < n; ++s) {
     const int p = s_pair[s];
     if (p < 0) continue;  // uniform across the block
     const uint16_t* t = s_tab + s * kTable;
-    float best = INFINITY;
+    float best = MODE == kQmNoMin ? 0.0f : INFINITY;
     int arg = -1;
+    if (MODE == kQmCopy) {
+      uint32_t bits = 0;
 #pragma unroll
-    for (int k = 0; k < kWin; ++k) {
+      for (int k = 0; k < kWin * kWords; ++k) bits += __popc(w[k]);
+      if (bits > 1024u) best = 0.0f;  // never: keeps the loads
+    }
+#pragma unroll
+    for (int k = 0; k < (MODE == kQmCopy ? 0 : kWin); ++k) {
       const int c = c0 + k * kCs;
       float acc = 0.0f;
 #pragma unroll
@@ -129,7 +146,9 @@ grouped_scan8_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
         const uint32_t byte = (w[k * kWords + (b >> 2)] >> ((b & 3) * 8)) & 0xFFu;
         acc += bf16_to_float(t[b * 256 + byte]);
       }
-      if (c < real && acc < best) {  // strict: ties keep the lower code
+      if (MODE == kQmNoMin) {
+        best += acc;
+      } else if (c < real && acc < best) {  // strict: ties keep the lower code
         best = acc;
         arg = row * kCpr + c;
       }
@@ -139,7 +158,7 @@ grouped_scan8_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
   }
 }
 
-template <int M>
+template <int M, int MODE = kQmFull>
 cudaError_t launch(const void* codes, const void* tables, const void* group_part,
                    const void* slot_pair, const void* group_sizes, void* out_min,
                    void* out_idx, int gcap, int group_size, int rpp, cudaStream_t stream) {
@@ -149,15 +168,16 @@ cudaError_t launch(const void* codes, const void* tables, const void* group_part
   const qadc::SlotChunks chunks = qadc::slot_chunks(group_size, kSlotBytes);
   const size_t smem = static_cast<size_t>(chunks.chunk) * kSlotBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_scan8_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      grouped_scan8_kernel<M, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(gcap, (rpp * kCs + kThreads - 1) / kThreads, chunks.count);
-  grouped_scan8_kernel<M><<<grid, kThreads, smem, stream>>>(
+  grouped_scan8_kernel<M, MODE><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const uint16_t*>(tables),
       static_cast<const int32_t*>(group_part), static_cast<const int32_t*>(slot_pair),
       static_cast<const int32_t*>(group_sizes), static_cast<float*>(out_min),
-      static_cast<int32_t*>(out_idx), rpp, group_size, chunks.chunk);
+      static_cast<int32_t*>(out_idx), rpp, group_size, chunks.chunk,
+      0u);  // lab mode const_code: every code byte 0x5A, the loads kept
   return cudaGetLastError();
 }
 
@@ -179,4 +199,28 @@ extern "C" int qadc_grouped_scan8(const void* codes, const void* tables,
     return launch<16>(codes, tables, group_part, slot_pair, group_sizes, out_min, out_idx,
                       gcap, group_size, rpp, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The scan lab: the kernel at m 8 (8x8 PQ) with parts removed (mode: a
+// qadc::QmMode, 1 copy, 2 no_min, 3 const_code). Only copy's output (+inf and
+// -1 for every live pair's window) is defined.
+extern "C" int qadc_grouped_scan8_lab(const void* codes, const void* tables,
+                                      const void* group_part, const void* slot_pair,
+                                      const void* group_sizes, void* out_min, void* out_idx,
+                                      int gcap, int group_size, int rpp, int mode, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (group_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kQmCopy:
+      return launch<8, kQmCopy>(codes, tables, group_part, slot_pair, group_sizes, out_min,
+                                out_idx, gcap, group_size, rpp, s);
+    case kQmNoMin:
+      return launch<8, kQmNoMin>(codes, tables, group_part, slot_pair, group_sizes, out_min,
+                                 out_idx, gcap, group_size, rpp, s);
+    case kQmConstCode:
+      return launch<8, kQmConstCode>(codes, tables, group_part, slot_pair, group_sizes, out_min,
+                                     out_idx, gcap, group_size, rpp, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

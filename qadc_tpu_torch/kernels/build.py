@@ -73,6 +73,17 @@ SIGNATURES = {
     # codes, tables, out_min, out_idx, n_blocks, q_count, n, stream
     "qadc_flat_scan8_const_code": (_P, _P, _P, _P, _I, _I, _I, _P),
     "qadc_empty_kernel": (_P,),  # stream
+    # codes, tables, group_part, slot_pair, group_sizes, out,
+    # gcap, group_size, rpp, cb, stream
+    "qadc_grouped_scan_sm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # codes, tables, group_part, slot_pair, group_sizes, out_min, out_idx,
+    # gcap, group_size, rpp, m, stream
+    "qadc_grouped_scan8_sm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the lab entries: as above with the mode in place of cb / m
+    "qadc_grouped_scan_lab": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qadc_grouped_scan_sm_lab": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qadc_grouped_scan8_lab": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qadc_grouped_scan8_sm_lab": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

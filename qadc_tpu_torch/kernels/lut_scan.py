@@ -5,9 +5,14 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
 
   grouped_scan  (M1)  <- lut_scan_grouped_tq / lut_scan_grouped_prefetch,
                          int8 tables (Quick ADC: the tensor-core kernel of
-                         scan_mma.cu) or float32 (4-bit ADC: the lookup
-                         kernel of grouped_scan.cu)
-  grouped_scan8 (5+6) <- lut_scan8_grouped_tq / lut_scan8_grouped_prefetch
+                         scan_mma.cu) or float32 (4-bit ADC: the slot-minor
+                         kernel of grouped_scan_sm.cu)
+  grouped_scan8 (5+6) <- lut_scan8_grouped_tq / lut_scan8_grouped_prefetch:
+                         the slot-minor kernel of grouped_scan8_sm.cu
+  grouped_scan_f32_lookup, grouped_scan8_lookup: the float M1 and the 8-bit
+                         grouped scan by the kernels of grouped_scan.cu and
+                         grouped_scan8.cu, kept for the A/B against the
+                         slot-minor kernels
   rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul)
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
@@ -107,16 +112,22 @@ QUERY_MINOR_LEAST, QUERY_MINOR_LEAST8 = 32, 8
 QUERY_MINOR_MIN_QUERIES = 20
 QUERY_MINOR_MIN_QUERIES8 = 4
 
+# Slots of a window, the slot-minor grouped scans' unit of work with a tile of
+# rows (csrc/grouped_slot_minor.cuh): a thread holds the window's 4 slots.
+GROUPED_WINDOW_SLOTS = 4
+
 # Launches of each kernel since the last reset_launch_counts();
 # grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables,
 # grouped_scan_lookup and flat_scan_lookup the int8 scans by the lookup
-# kernels, flat_scan_f32_lookup and flat_scan8_lookup the float and 8-bit flat
-# scans by the kernels the query-minor ones replaced, scan_lab, selector_sum
-# and empty_kernel the instruments of kernels/scan_lab.py.
+# kernels, grouped_scan_f32_lookup, grouped_scan8_lookup, flat_scan_f32_lookup
+# and flat_scan8_lookup the float and 8-bit scans by the kernels the
+# slot-minor and query-minor ones replaced, scan_lab, selector_sum and
+# empty_kernel the instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
             "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
             "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0,
-            "grouped_scan_lookup": 0, "flat_scan_lookup": 0,
+            "grouped_scan_lookup": 0, "grouped_scan_f32_lookup": 0,
+            "grouped_scan8_lookup": 0, "flat_scan_lookup": 0,
             "flat_scan_f32_lookup": 0, "flat_scan8_lookup": 0, "scan_lab": 0,
             "selector_sum": 0, "empty_kernel": 0}
 
@@ -244,6 +255,19 @@ def grouped_scan_lookup(codes, tables, group_part, slot_pair, group_sizes):
                                 "grouped_scan_lookup")
 
 
+def grouped_scan_f32_lookup(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan's float32 result by the row-a-thread kernel
+    (grouped_scan.cu) that the slot-minor one replaced: the same arguments
+    (float32 tables only) and the same minima, bit for bit. An A/B
+    instrument: no search path calls it."""
+    if not _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=True):
+        raise TypeError(f"tables must be torch.float32, got {tables.dtype}")
+    if codes.device.type == "cpu":
+        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
+                                "grouped_scan_f32_lookup")
+
+
 def _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok: bool) -> bool:
     """Argument checks of M1. Returns whether the tables are float32."""
     _check_groups(codes, group_part, slot_pair, group_sizes)
@@ -257,18 +281,21 @@ def _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_o
 
 def _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, kernel: str):
     """Launch M1 on checked CUDA tensors. `kernel` is its key in `launches`:
-    grouped_scan runs the tensor-core kernel, the other two the lookup kernel."""
+    grouped_scan runs the tensor-core kernel, grouped_scan_f32 the slot-minor
+    one, the _lookup arms the lookup kernel."""
     dev = codes.device
     _require_cuda(dev, codes, tables)
     qa, m, _ = tables.shape
     gcap, g = slot_pair.shape
     rpp = codes.shape[1]
-    f32 = kernel == "grouped_scan_f32"
+    f32 = tables.dtype == torch.float32
     out = torch.empty((qa, rpp), dtype=tables.dtype if f32 else torch.int32, device=dev)
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, out)]
         if kernel == "grouped_scan":
             _launch("qadc_grouped_scan_mma", dev, *ptrs, gcap, g, rpp, m // 2)
+        elif kernel == "grouped_scan_f32":
+            _launch("qadc_grouped_scan_sm", dev, *ptrs, gcap, g, rpp, m // 2)
         else:
             _launch("qadc_grouped_scan", dev, *ptrs, gcap, g, rpp, m // 2, int(f32))
         launches[kernel] += 1
@@ -332,6 +359,20 @@ def grouped_scan8(codes, tables, group_part, slot_pair, group_sizes):
       the partition-local code index of the minimum (ties to the lower
       code); +inf and -1 for a window with no real code.
     """
+    return _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes, "grouped_scan8")
+
+
+def grouped_scan8_lookup(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan8's result by the window-a-thread kernel (grouped_scan8.cu)
+    that the slot-minor one replaced: the same arguments and the same minima
+    and indices, bit for bit. An A/B instrument: no search path calls it."""
+    return _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes,
+                          "grouped_scan8_lookup")
+
+
+def _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes, kernel: str):
+    """grouped_scan8 by `kernel`, its key in `launches`: grouped_scan8 runs the
+    slot-minor kernel, grouped_scan8_lookup the window-a-thread one."""
     dev = codes.device
     _check_groups(codes, group_part, slot_pair, group_sizes)
     _check(tables, "tables", torch.bfloat16, 3, dev)
@@ -350,8 +391,9 @@ def grouped_scan8(codes, tables, group_part, slot_pair, group_sizes):
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in
                 (codes, tables, group_part, slot_pair, group_sizes, mins, idx)]
-        _launch("qadc_grouped_scan8", dev, *ptrs, gcap, g, rpp, m)
-        launches["grouped_scan8"] += 1
+        entry = "qadc_grouped_scan8_sm" if kernel == "grouped_scan8" else "qadc_grouped_scan8"
+        _launch(entry, dev, *ptrs, gcap, g, rpp, m)
+        launches[kernel] += 1
     return mins, idx
 
 
@@ -379,6 +421,117 @@ def grouped_scan8_plain(codes, tables, group_part, slot_pair, group_sizes):
     out_idx = torch.full((qa, rpp * cs), -1, dtype=torch.int32, device=dev)
     out_min[pair] = best.reshape(-1, rpp * cs)
     out_idx[pair] = arg.reshape(-1, rpp * cs).to(torch.int32)
+    return out_min, out_idx
+
+
+# ------------------------------------------- the slot-minor grouped scans' walk
+
+
+def slot_windows(slot_row: torch.Tensor) -> list[torch.Tensor]:
+    """The live slot windows of one group's row of slots: for each window of
+    GROUPED_WINDOW_SLOTS consecutive slots holding a live slot, its live pair
+    ids in slot order (csrc/grouped_slot_minor.cuh:check_items)."""
+    out = []
+    for w0 in range(0, slot_row.numel(), GROUPED_WINDOW_SLOTS):
+        window = slot_row[w0:w0 + GROUPED_WINDOW_SLOTS]
+        live = window[window >= 0].long()
+        if live.numel():
+            out.append(live)
+    return out
+
+
+def to_slot_minor(tables: torch.Tensor) -> torch.Tensor:
+    """(n <= 4, E, K) tables of a slot window -> (E * K, 4), the layout the
+    window is staged in: entry e of slot s at [e, s], zeros past n, so a
+    thread fetches an entry's 4 slots with one vector load."""
+    out = tables.new_zeros((GROUPED_WINDOW_SLOTS,) + tuple(tables.shape[1:]))
+    out[:tables.shape[0]] = tables
+    return out.reshape(GROUPED_WINDOW_SLOTS, -1).T.contiguous()
+
+
+def grouped_scan_slot_minor_plain(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan's float32 function by the slot-minor kernel's own walk
+    (csrc/grouped_scan_sm.cu): the same arguments (float32 tables) and result
+    as grouped_scan_plain, bit for bit.
+
+    A group's slots run in windows of GROUPED_WINDOW_SLOTS (slot_windows),
+    each window's tables staged slot-minor (to_slot_minor; the kernel keeps
+    the 4 slots as two pairs of 8 bytes). A thread is a storage row holding
+    all 4 slots: for each code, in code order, it looks up row (m * 16 +
+    nibble) of the staged tables, all 4 slots at once, over b = 0..cb-1, low
+    nibble then high, and keeps each slot's running minimum with a strict <.
+    Used by the tests and chip_smoke.py, by no search path.
+    """
+    _, rpp, _ = codes.shape
+    qa, m, _ = tables.shape
+    cb = m // 2
+    cpr = 128 // cb
+    dev = codes.device
+    out = torch.full((qa, rpp), torch.inf, dtype=torch.float32, device=dev)
+    sizes = group_sizes.tolist()
+    for g, part in enumerate(group_part.tolist()):
+        rows = codes[part].reshape(rpp, cpr, cb).long()
+        real = sizes[g] - torch.arange(rpp, device=dev) * cpr        # real codes of each row
+        for pairs in slot_windows(slot_pair[g]):
+            staged = to_slot_minor(tables[pairs])                     # (M * 16, 4)
+            best = torch.full((rpp, GROUPED_WINDOW_SLOTS), torch.inf, dtype=torch.float32,
+                              device=dev)
+            for c in range(cpr):
+                acc = torch.zeros_like(best)
+                for b in range(cb):
+                    byte = rows[:, c, b]
+                    acc = acc + staged[(2 * b) * 16 + (byte & 15)]
+                    acc = acc + staged[(2 * b + 1) * 16 + (byte >> 4)]
+                take = (c < real)[:, None] & (acc < best)            # strict minimum
+                best = torch.where(take, acc, best)
+            out[pairs] = best[:, :pairs.numel()].T
+    return out
+
+
+def grouped_scan8_slot_minor_plain(codes, tables, group_part, slot_pair, group_sizes):
+    """grouped_scan8's function by the slot-minor kernel's own walk
+    (csrc/grouped_scan8_sm.cu): the same arguments and result as
+    grouped_scan8_plain, bit for bit.
+
+    A group's slots run in windows of GROUPED_WINDOW_SLOTS, each window's
+    tables staged slot-minor. A thread is a storage row holding all 4 slots:
+    for each of its cs scan windows it takes the codes c0 + k * cs in code
+    order, looks up row b * 256 + byte of the staged tables, all 4 slots at
+    once, sums in float32 over b = 0..m-1 and keeps each slot's running
+    minimum and code index with a strict <. Used by the tests and
+    chip_smoke.py, by no search path.
+    """
+    _, rpp, _ = codes.shape
+    qa, m, _ = tables.shape
+    cpr = 128 // m
+    window, cs = scan8_windows(m)
+    dev = codes.device
+    windows = rpp * cs
+    out_min = torch.full((qa, windows), torch.inf, dtype=torch.float32, device=dev)
+    out_idx = torch.full((qa, windows), -1, dtype=torch.int32, device=dev)
+    win = torch.arange(windows, device=dev)
+    row, c0 = win // cs, win % cs
+    sizes = group_sizes.tolist()
+    for g, part in enumerate(group_part.tolist()):
+        part_codes = codes[part].reshape(rpp * cpr, m).long()
+        real = sizes[g] - row * cpr                                  # real codes of each row
+        for pairs in slot_windows(slot_pair[g]):
+            staged = to_slot_minor(tables[pairs]).to(torch.float32)   # (m * 256, 4)
+            best = torch.full((windows, GROUPED_WINDOW_SLOTS), torch.inf, dtype=torch.float32,
+                              device=dev)
+            arg = torch.full(best.shape, -1, dtype=torch.int64, device=dev)
+            for k in range(window):
+                c = c0 + k * cs
+                code = part_codes[row * cpr + c]                     # (windows, m)
+                acc = torch.zeros_like(best)
+                for b in range(m):
+                    acc = acc + staged[b * 256 + code[:, b]]
+                take = (c < real)[:, None] & (acc < best)            # strict: the lower code stays
+                best = torch.where(take, acc, best)
+                arg = torch.where(take, (row * cpr + c)[:, None], arg)
+            n = pairs.numel()
+            out_min[pairs] = best[:, :n].T
+            out_idx[pairs] = arg[:, :n].T.to(torch.int32)
     return out_min, out_idx
 
 

@@ -26,6 +26,11 @@ The query-minor flat scans (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh) have
 their modes in QM_LAB_MODES (`query_minor_lab`, kernels of csrc/scan_lab_qm.cu),
 `query_minor_by_chunk` runs either at a forced chunk of queries, and
 `empty_kernel` gives the device time of a launch.
+
+The slot-minor grouped scans (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu)
+and the kernels they replaced (grouped_scan.cu's float instantiation,
+grouped_scan8.cu) have theirs in GROUPED_LAB_MODES (`grouped_lab`, held to
+what defines them by `check_grouped`).
 """
 
 from __future__ import annotations
@@ -377,3 +382,98 @@ def times(codes_rows, tables, n: int, timer: Callable[[Callable, str], float]) -
 def run(codes_rows, tables, n: int, timer: Callable[[Callable, str], float]) -> dict:
     """The whole lab: `check`, then `times`; their results in one dict."""
     return {**check(codes_rows, tables, n), **times(codes_rows, tables, n, timer)}
+
+
+# name -> (scan: "f32" M1 with float tables at 16x4 PQ, "u8" grouped_scan8 at
+# 8x8; kernel: "sm" the slot-minor one, "arm" the one it replaced; the
+# kernels' mode number, None for the production kernel over every slot dead;
+# what the mode keeps). f32_quad is the slot-minor M1 kernel with its tables
+# as [entry][4 slots] in place of two slot pairs: one 16-byte load a lookup,
+# and rows whose nibbles differ by 8 meet on a bank; its output is the scan's.
+GROUPED_LAB_MODES = {
+    **{f"{scan}{'' if kernel == 'sm' else '_arm'}_{name}": (scan, kernel, number, keeps)
+       for scan in ("f32", "u8")
+       for kernel in ("sm", "arm")
+       for name, number, keeps in (
+           ("copy", 1, "codes in, sentinel out"),
+           ("no_min", 2, "lookups and sums, no minimum"),
+           ("const_code", 3, "lookups at a fixed code byte: every lane on one entry"),
+           ("empty", None, "the grid with every slot dead: walk, checks and exits alone"),
+       )},
+    "f32_quad": ("f32", "sm", 4, "tables as [entry][4 slots]: 16-byte loads that meet on banks"),
+}
+# The kernel each lab mode launches (a profiler's name filter).
+GROUPED_LAB_KERNELS = {("f32", "sm"): "grouped_scan_sm_kernel",
+                       ("f32", "arm"): "grouped_scan_kernel",
+                       ("u8", "sm"): "grouped_scan8_sm_kernel",
+                       ("u8", "arm"): "grouped_scan8_kernel"}
+
+
+def grouped_lab(codes, tables, group_part, slot_pair, group_sizes, mode: str):
+    """A grouped scan (the slot-minor kernel or the kernel it replaced) with
+    parts removed, or ("*_empty") with every slot of slot_pair dead.
+
+    Args: grouped_scan's (float32 (QA, 16, 16) tables) for the f32 modes,
+      grouped_scan8's ((QA, 8, 256) bfloat16 tables) for the u8 modes.
+
+    Returns:
+      (QA, rpp) float32 for the f32 modes, ((QA, C) float32, (QA, C) int32)
+      for the u8 ones. The copy modes give +inf (and -1) for every live
+      pair, quad the scan's minima; the empty modes write nothing; the other
+      modes return values that only keep the compiler from dropping what the
+      mode keeps. On the CPU copy and quad run their plain versions and the
+      others raise: they exist to be timed on the card.
+    """
+    scan, kernel, number, _ = GROUPED_LAB_MODES[mode]
+    f32 = scan == "f32"
+    lut_scan._check_groups(codes, group_part, slot_pair, group_sizes)
+    dev = codes.device
+    _check(tables, "tables", torch.float32 if f32 else torch.bfloat16, 3, dev)
+    want = (16, 16) if f32 else (8, 256)
+    if tuple(tables.shape[1:]) != want:
+        raise ValueError(f"need (QA, {want[0]}, {want[1]}) tables, got {tuple(tables.shape)}")
+    qa, rpp = tables.shape[0], codes.shape[1]
+    c = rpp if f32 else rpp * lut_scan.scan8_windows(8)[1]
+    if dev.type == "cpu":
+        if number == 4:
+            return lut_scan.grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+        if number != 1:
+            raise RuntimeError(f"lab mode {mode!r} has no plain version: it is timed on the card")
+        mins = torch.full((qa, c), torch.inf, dtype=torch.float32)
+        return mins if f32 else (mins, torch.full((qa, c), -1, dtype=torch.int32))
+    _require_cuda(dev, codes, tables)
+    gcap, g = slot_pair.shape
+    if number is None:
+        slot_pair = torch.full_like(slot_pair, -1)
+    outs = (torch.empty((qa, c), dtype=torch.float32, device=dev),) + (
+        () if f32 else (torch.empty((qa, c), dtype=torch.int32, device=dev),))
+    ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, *outs)]
+    if number is None:
+        entry = {("f32", "sm"): "qadc_grouped_scan_sm", ("f32", "arm"): "qadc_grouped_scan",
+                 ("u8", "sm"): "qadc_grouped_scan8_sm", ("u8", "arm"): "qadc_grouped_scan8"}
+        extra = (8, 1) if f32 and kernel == "arm" else (8,)  # cb or m, and the float flag
+        _launch(entry[scan, kernel], dev, *ptrs, gcap, g, rpp, *extra)
+    else:
+        entry = f"qadc_grouped_scan{'' if f32 else '8'}{'_sm' if kernel == 'sm' else ''}_lab"
+        _launch(entry, dev, *ptrs, gcap, g, rpp, number)
+    launches["scan_lab"] += 1
+    return outs[0] if f32 else outs
+
+
+def check_grouped(f32_args, u8_args) -> None:
+    """One launch of every grouped lab mode, each held to what defines it:
+    the copy modes to their sentinels over the live pairs, quad to the
+    scan's minima; the other modes only launch. f32_args / u8_args:
+    grouped_scan's / grouped_scan8's arguments (16x4 float tables, 8x8 bf16
+    tables)."""
+    for mode, (scan, _, number, _) in GROUPED_LAB_MODES.items():
+        args = f32_args if scan == "f32" else u8_args
+        got = grouped_lab(*args, mode)
+        if number == 4 and not torch.equal(got, lut_scan.grouped_scan(*args)):
+            raise AssertionError("grouped lab mode f32_quad differs from the scan")
+        if number == 1:
+            live = args[3][args[3] >= 0].long()
+            mins = got if scan == "f32" else got[0]
+            if not bool(torch.isinf(mins[live]).all()) or (
+                    scan == "u8" and not bool((got[1][live] == -1).all())):
+                raise AssertionError(f"grouped lab mode {mode} did not write the sentinel")

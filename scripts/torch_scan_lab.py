@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The scan lab on one CUDA card: where the time of the 4-bit int8 scans goes.
 
-    python3 scripts/torch_scan_lab.py      # one CUDA card, about 70 s
+    python3 scripts/torch_scan_lab.py          # one CUDA card, about 100 s
+    python3 scripts/torch_scan_lab.py grouped  # the grouped section alone
 
 The counterpart of the JAX package's scratch scripts benchmarks/ab_tq.py,
 ab_tq_ablate.py, kernel_lab.py and diag_direct.py, for the tensor-core scans
@@ -36,6 +37,15 @@ queries' int8 tables it prints, in device milliseconds (torch.profiler,
            an empty kernel (the launch floor), and selector_sum against
            torch.matmul in ten runs of 100 launches each.
 
+  grouped  M1 with float32 tables and grouped_scan8 by their slot-minor
+           kernels (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu) against the
+           kernels they replaced, over the seeded IVF-256 16x4 and 8x8
+           indexes at search_adc's routed groups of 1 to 128 queries x 24
+           probes and at a hot partition (128 near-duplicate queries: whole
+           groups of 128 live slots); each with its lab modes (copy, no_min,
+           const_code, and every slot dead) at 32 queries and at the hot
+           partition; the new kernels' b=32 time in ten runs.
+
 The last two lines are one JSON object {"scan_lab": ...} and the card's name
 and power limit. It exits non-zero without a card or on any disagreement.
 """
@@ -51,7 +61,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from qadc_tpu_torch.convert import ivf_index_from_arrays  # noqa: E402
-from qadc_tpu_torch.eval.synth import bench_ivf_arrays  # noqa: E402
+from qadc_tpu_torch.eval.synth import bench_ivf8_arrays, bench_ivf_arrays  # noqa: E402
 from qadc_tpu_torch.index import ivf  # noqa: E402
 from qadc_tpu_torch.index.routing import route_queries  # noqa: E402
 from qadc_tpu_torch.kernels import lut_scan, scan_lab  # noqa: E402
@@ -66,16 +76,19 @@ def device_ms(fn, kernel: str, reps: int = REPS, whole_call: bool = False) -> fl
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):  # on a busy host a whole window can come back empty: take it again
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in events)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in events)
+        if count > 0:
+            break
     if count <= 0:
-        raise RuntimeError(f"the profiler saw no launch of {kernel}")
+        raise RuntimeError(f"the profiler saw no launch of {kernel!r} in three windows")
     total = sum(e.self_device_time_total for e in events)
     if whole_call:
         return total / reps / 1e3
@@ -150,6 +163,56 @@ def query_minor(codes, dev, card: str) -> dict:
     return out
 
 
+def grouped(dev, card: str) -> dict:
+    """The grouped section: see the module docstring."""
+    rng = np.random.default_rng(2)
+    indexes = {4: ivf_index_from_arrays(*bench_ivf_arrays(rng), dev),
+               8: ivf_index_from_arrays(*bench_ivf8_arrays(rng), dev)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches = {f"b={b}": torch.randn((b, 128), generator=gen, device=dev)
+               for b in (1, 8, 32, 64, Q)}
+    batches["hot"] = batches["b=1"] + 1e-3 * torch.randn((Q, 128), generator=gen, device=dev)
+    kernels = {4: (lut_scan.grouped_scan, "grouped_scan_sm_kernel",
+                   lut_scan.grouped_scan_f32_lookup, "grouped_scan_kernel"),
+               8: (lut_scan.grouped_scan8, "grouped_scan8_sm_kernel",
+                   lut_scan.grouped_scan8_lookup, "grouped_scan8_kernel")}
+    out = {"ms": {}, "live": {}, "mode_ms": {}}
+    for bits, ix in indexes.items():
+        new, new_name, arm, arm_name = kernels[bits]
+        for tag, qs in batches.items():
+            parts, rot = ivf.assign_queries(ix, qs, MA)
+            t = ivf.adc_tables(rot, ix.pq.centroids).reshape(qs.shape[0] * MA, ix.pq.sq_count, -1)
+            routed = route_queries(parts, ix.part_count, 128)
+            args = (ix.codes, t if bits == 4 else t.to(torch.bfloat16), routed.group_part,
+                    routed.slot_pairs(), ivf._group_sizes(ix, routed))
+            got, want = new(*args), arm(*args)
+            same = (torch.equal(got, want) if bits == 4
+                    else torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+            if not same:
+                raise AssertionError(
+                    f"{bits}-bit {tag}: the slot-minor kernel differs from the arm")
+            live = (args[3] >= 0).sum(1)
+            out["live"][f"{bits}-bit {tag}"] = {"groups": int((live > 0).sum()),
+                                                "mean": float(live[live > 0].float().mean()),
+                                                "max": int(live.max())}
+            out["ms"][f"{bits}-bit {tag}"] = {
+                "slot_minor": device_ms(lambda: new(*args), new_name),
+                "arm": device_ms(lambda: arm(*args), arm_name, reps=30)}
+            if tag in ("b=32", "hot"):
+                for mode, (scan, kern, _, _) in scan_lab.GROUPED_LAB_MODES.items():
+                    if (scan == "f32") == (bits == 4):
+                        out["mode_ms"][f"{mode} {tag}"] = device_ms(
+                            lambda mode=mode: scan_lab.grouped_lab(*args, mode),
+                            scan_lab.GROUPED_LAB_KERNELS[scan, kern], reps=30)
+                if tag == "b=32":
+                    out["ms"][f"{bits}-bit b=32 ten runs"] = [
+                        device_ms(lambda: new(*args), new_name) for _ in range(10)]
+    print(f"grouped live slots: {out['live']}", flush=True)
+    print(f"grouped slot-minor and arm, device ms: {out['ms']} [{card}]", flush=True)
+    print(f"grouped lab modes, device ms: {out['mode_ms']} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -158,6 +221,10 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    if sys.argv[1:] == ["grouped"]:  # the grouped section alone
+        print(json.dumps({"scan_lab": {"grouped": grouped(dev, card)}, "card": card}))
+        print(card)
+        return 0
     rng = np.random.default_rng(0)
     codes = torch.from_numpy(rng.integers(0, 256, (N_PAD // 16, 128), dtype=np.uint8)).to(dev)
     tables = torch.from_numpy(rng.integers(0, 128, (Q, 16, 16)).astype(np.int8)).to(dev)
@@ -190,6 +257,7 @@ def main() -> int:
           f"wgmma from {floor} queries) [{card}]", flush=True)
 
     out["query_minor"] = query_minor(codes, dev, card)
+    out["grouped"] = grouped(dev, card)
 
     arrays, manifest = bench_ivf_arrays(rng)
     index = ivf_index_from_arrays(arrays, manifest, dev)

@@ -25,6 +25,7 @@ from qadc_tpu_torch.eval.synth import (bench_flat_arrays, bench_ivf8_arrays,
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.kernels import lut_scan, scan_lab
+from test_torch_grouped_slot_minor import LIVE_COUNTS, groups_with_live_counts, scatter_slots
 
 
 @pytest.fixture
@@ -569,3 +570,105 @@ def test_query_minor_lab_on_card(cuda):
     torch.cuda.synchronize()
     assert lut_scan.launches["scan_lab"] == before["scan_lab"] + 6 + len(scan_lab.QM_LAB_MODES)
     assert lut_scan.launches["empty_kernel"] == before["empty_kernel"] + 1
+
+
+# ---- the slot-minor grouped scans (grouped_scan_sm.cu, grouped_scan8_sm.cu) ----
+
+SM_RPP = 200  # a partial tile of 64 rows / 128 windows
+SM_CASES = [(n,) for n in LIVE_COUNTS] + [LIVE_COUNTS]
+SM_IDS = [f"live{c[0]}" for c in SM_CASES[:-1]] + ["mixed"]
+
+
+def _slot_minor_inputs(counts, m, k, dtype, seed, group_size=128):
+    g = np.random.default_rng(seed)
+    cpr = 128 // (m // 2) if k == 16 else 128 // m
+    *groups, qa = groups_with_live_counts(counts, SM_RPP, cpr, seed, group_size)
+    codes = torch.from_numpy(g.integers(0, 256, (len(counts), SM_RPP, 128), dtype=np.uint8))
+    # Small integers: sums tie often, so the lower-code rule is exercised.
+    tables = torch.from_numpy(g.integers(0, 4, (qa, m, k)).astype(np.float32)).to(dtype)
+    return [codes, tables, *groups]
+
+
+@pytest.mark.parametrize("counts", SM_CASES, ids=SM_IDS)
+@pytest.mark.parametrize("m", [16, 32])
+def test_grouped_scan_slot_minor_equals_arm_and_plain(cuda, counts, m):
+    args = _slot_minor_inputs(counts, m, 16, torch.float32, seed=m)
+    want = lut_scan.grouped_scan_plain(*args)
+    dev = [a.to(cuda) for a in args]
+    before = dict(lut_scan.launches)
+    got = lut_scan.grouped_scan(*dev)
+    arm = lut_scan.grouped_scan_f32_lookup(*dev)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["grouped_scan_f32"] == before["grouped_scan_f32"] + 1
+    assert lut_scan.launches["grouped_scan_f32_lookup"] == before["grouped_scan_f32_lookup"] + 1
+    assert torch.equal(got.cpu(), want) and torch.equal(arm.cpu(), want)
+
+
+@pytest.mark.parametrize("counts", SM_CASES, ids=SM_IDS)
+@pytest.mark.parametrize("m", [4, 8, 16])
+def test_grouped_scan8_slot_minor_equals_arm_and_plain(cuda, counts, m):
+    args = _slot_minor_inputs(counts, m, 256, torch.bfloat16, seed=200 + m)
+    want = lut_scan.grouped_scan8_plain(*args)
+    dev = [a.to(cuda) for a in args]
+    before = dict(lut_scan.launches)
+    got = lut_scan.grouped_scan8(*dev)
+    arm = lut_scan.grouped_scan8_lookup(*dev)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["grouped_scan8"] == before["grouped_scan8"] + 1
+    assert lut_scan.launches["grouped_scan8_lookup"] == before["grouped_scan8_lookup"] + 1
+    for out in (got, arm):
+        assert torch.equal(out[0].cpu(), want[0]) and torch.equal(out[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("group_size", [4, 16])
+def test_grouped_slot_minor_small_groups(cuda, group_size):
+    """A partition's pairs over several groups, groups past n_groups unused."""
+    for m, k, dtype, scan, plain in ((16, 16, torch.float32, lut_scan.grouped_scan,
+                                      lut_scan.grouped_scan_plain),
+                                     (8, 256, torch.bfloat16, lut_scan.grouped_scan8,
+                                      lut_scan.grouped_scan8_plain)):
+        args = _slot_minor_inputs((1, 9, 33), m, k, dtype, seed=5, group_size=group_size)
+        got, want = scan(*[a.to(cuda) for a in args]), plain(*args)
+        for x, y in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("m,k", [(16, 16), (32, 16), (4, 256), (8, 256), (16, 256)])
+def test_grouped_slot_minor_takes_live_slots_anywhere(cuda, m, k):
+    """Live slots spread over each group's row, as no routing lays them out."""
+    dtype = torch.float32 if k == 16 else torch.bfloat16
+    args = _slot_minor_inputs((3, 33, 128), m, k, dtype, seed=11)
+    args[3] = scatter_slots(args[3], 11)
+    scan, plain = ((lut_scan.grouped_scan, lut_scan.grouped_scan_plain) if k == 16
+                   else (lut_scan.grouped_scan8, lut_scan.grouped_scan8_plain))
+    got, want = scan(*[a.to(cuda) for a in args]), plain(*args)
+    for x, y in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_search_adc_launches_the_slot_minor_kernels(cuda, bits):
+    make = bench_ivf_arrays if bits == 4 else bench_ivf8_arrays
+    index = ivf_index_from_arrays(*make(np.random.default_rng(0), parts=16), cuda)
+    queries = np.random.default_rng(1).normal(size=(32, 128)).astype(np.float32)
+    key = "grouped_scan_f32" if bits == 4 else "grouped_scan8"
+    torch.cuda.synchronize()
+    before = dict(lut_scan.launches)
+    ivf.search_adc(index, queries, r=50, ma=4)
+    torch.cuda.synchronize()
+    assert lut_scan.launches[key] == before[key] + 1
+    for arm in ("grouped_scan_f32_lookup", "grouped_scan8_lookup"):
+        assert lut_scan.launches[arm] == before[arm]
+
+
+def test_grouped_lab_on_card(cuda):
+    """Every grouped lab mode launches; the copy modes write their sentinels
+    (scan_lab.check_grouped raises otherwise)."""
+    f32 = [a.to(cuda) for a in _slot_minor_inputs((3, 12, 40), 16, 16, torch.float32, seed=9)]
+    u8 = [a.to(cuda) for a in _slot_minor_inputs((3, 12, 40), 8, 256, torch.bfloat16, seed=9)]
+    before = lut_scan.launches["scan_lab"]
+    scan_lab.check_grouped(f32, u8)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["scan_lab"] == before + len(scan_lab.GROUPED_LAB_MODES)
