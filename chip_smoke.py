@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: its IVF and flat searches
 over seeded random indexes, then train -> build -> save -> load -> search on
-one million SIFT-like vectors, held to recall against true neighbours.
+one million SIFT-like vectors, held to recall against true neighbours, and
+the reference's create-index / add / query workflow on those vectors through
+the port's files, CLI, query engine, server and autotune.
 
     python3 chip_smoke.py        # from the root of a checkout, one CUDA card
 
@@ -41,9 +43,10 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      versions and against an exact float64 ADC oracle over the same codes
      (the probed partitions; every real flat code);
   3. timing with CUDA events (warm-up, then the median and p90 of 100 runs): us/query
-     per batch, and each kernel beside its plain version; torch.profiler's
-     CUDA events give device time (each kernel alone; the device's busy and
-     idle share of a search);
+     per batch (qadc also forced onto the direct path at b=32 and 128), and
+     each kernel beside its plain version; torch.profiler's CUDA events give
+     device time (each kernel alone; the device's busy and idle share of a
+     search);
   4. the build path, in the shape of the JAX package's bench.py recall stage:
      1M vectors of eval/synth.sift_moment_like and 128 queries, the first
      100,000 the learn set, the exact nearest neighbour the ground truth;
@@ -67,7 +70,25 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      query-minor scans at every chunk of queries and with parts removed, and
      an empty kernel (the device time of a launch); printed as one
      `scan_lab` line; the grouped scans' lab modes (scan_lab.GROUPED_LAB_MODES)
-     at search_adc's b=32 groups.
+     at search_adc's b=32 groups;
+  7. the workflow (workflow_phases), after the trained phase's recall checks,
+     on its 1M vectors and 10,000 more queries of the same draw: files
+     (base, learn, queries and the exact top-100 from ops/knn on the card
+     written as .fvecs / .ivecs and read back by the native path, the numpy
+     path and VectorStream, equal; MB/s), the CLI in process (create-index
+     IVF-256 OPQ 16x4, add, info, also as a `python -m` subprocess; query
+     r=100 ma=24 -k 0.852 b=32, then --adc-type adc; create-flat 16x4, add,
+     query b=128 -k 1): each CSV recall equals recall_at_r of the API search
+     of the saved index, IVF Quick ADC at or above 0.88, and torch.profiler
+     sees M1, M2 and the flat scan launched; QueryEngine.run at b=32 equal to
+     the API (phase CSV, idle share); SearchServer (batch 128, 2 ms) under
+     2,000 requests from 8 threads, each answer equal to the search of its
+     bucket's path, p50 / p99 and QPS, the search's own time inside the
+     executor (a timed search_fn), M3 seen from the server's bucket 1;
+     search_qadc forced direct and grouped at b = 1..32 (the crossover); and
+     autotune.tune_ivf_qadc at b=32 into a cache in the run's temporary
+     directory, a search without group_size consuming the pick. One
+     `workflow` JSON line holds the numbers.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -84,12 +105,16 @@ reports them, and the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -129,6 +154,13 @@ PATH_KERNELS = {
     "trained_ivf_qadc_norerank": ("grouped_scan", "rows_adc"),
     "trained_flat_qadc": ("flat_scan", "rows_adc"),
     "window_scan": ("flat_scan_window", "flat_scan_window_regs"),
+    "cli_ivf_qadc": ("grouped_scan", "rows_adc"),
+    "cli_ivf_adc": ("grouped_scan_f32", "rows_adc"),
+    "cli_flat_qadc": ("flat_scan", "rows_adc"),
+    "engine": ("grouped_scan", "rows_adc"),
+    "serve": ("grouped_scan", "rows_adc", "direct_scan"),
+    "crossover": ("grouped_scan", "rows_adc", "direct_scan"),
+    "autotune": ("grouped_scan", "rows_adc"),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
                  "flat_scan_window", "flat_scan_window_regs", "flat_scan_f32_lookup",
                  "flat_scan8_lookup", "empty_kernel"),
@@ -153,6 +185,22 @@ TRAIN_KEEP = 0.00213 * 4
 RECALL_FLOORS = {"flat_8x8_adc": 0.87, "ivf256_8x8_adc_ma24": 0.95,
                  "ivf256_16x4_qadc_ma24": 0.88}
 WINDOW_N32 = 100_000     # codes of the 32x4 window-scan index
+# The workflow phases (7): the reference's create-index / add / query on
+# SIFT1M-sized files through the port's CLI, engine, server and autotune.
+CLI_NQ, CLI_BATCH, FLAT_CLI_BATCH, GT_K, GT_CHUNK = 10_000, 32, 128, 100, 500
+CLI_KEEP_PCT = TRAIN_KEEP * 100          # -k is in percent: 0.852
+CLI_CHUNK = 262_144                      # add's --chunk-size
+SERVE_REQUESTS, SERVE_THREADS, SERVE_BATCH, SERVE_WAIT_MS = 2000, 8, 128, 2.0
+SERVE_RTOL = 1e-6
+CROSSOVER_BATCHES, CROSSOVER_REPS = (1, 2, 4, 8, 16, 32, 64, 128), 30
+# CUDA kernels torch.profiler must see launched by each workflow phase.
+PROFILED_KERNELS = {
+    "cli_ivf_qadc": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "cli_ivf_adc": ("grouped_scan_sm_kernel", "rows_adc_kernel"),
+    "cli_flat_qadc": ("flat_scan_wgmma_kernel", "rows_adc_kernel"),
+    "engine": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "serve": ("grouped_scan_mma_kernel", "rows_adc_kernel", "direct_scan_kernel"),
+}
 
 
 def card_line() -> str:
@@ -276,7 +324,7 @@ def main() -> int:
     from qadc_tpu_torch.eval.recall import recall_at_r
     from qadc_tpu_torch.eval.synth import (bench_flat_arrays, bench_ivf8_arrays,
                                            bench_ivf16_arrays, bench_ivf_arrays,
-                                           sift_moment_like)
+                                           sift_moment_sampler)
     from qadc_tpu_torch.index import flat, ivf
     from qadc_tpu_torch.index.routing import route_queries
     from qadc_tpu_torch.io.checkpoint import load_index, save_index
@@ -287,6 +335,9 @@ def main() -> int:
     from qadc_tpu_torch.quantizers.pq import train_pq
 
     t_start = time.perf_counter()
+    # Files, indexes and the autotune cache of this run live here only.
+    workdir = tempfile.TemporaryDirectory(prefix="qadc_smoke_")
+    os.environ["QADC_AUTOTUNE_CACHE"] = os.path.join(workdir.name, "autotune.json")
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -774,6 +825,9 @@ def main() -> int:
 
     for b in BATCHES:
         e2e("qadc", b, lambda: search(b))
+    for b in BATCHES[1:]:  # the direct path where DIRECT_MAX_* choose the grouped one
+        e2e("qadc direct", b, lambda: ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP,
+                                                      direct=True))
     for bits in (4, 8):
         e2e(f"adc{bits}", ADC_BATCH, lambda: search_adc(bits))
     for path, run in flat_runs.items():
@@ -788,12 +842,14 @@ def main() -> int:
         print(f"{label}: {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
         return out
 
-    trng = np.random.default_rng(7)  # the JAX bench's recall stage draws from the same seed
-    base_np, tq_np = timed(f"data: sift_moment_like {TRAIN_N} x 128 (host)",
-                           lambda: sift_moment_like(trng, TRAIN_N, nq=TRAIN_NQ))
+    # The JAX bench's recall stage draws sift_moment_like(rng(7), TRAIN_N,
+    # nq=TRAIN_NQ); the workflow phases' 10,000 queries are the next draw.
+    draw = sift_moment_sampler(np.random.default_rng(7))
+    base_np, tq_np, cli_q_np = timed(
+        f"data: sift_moment_like {TRAIN_N} x 128 + {TRAIN_NQ} + {CLI_NQ} queries (host)",
+        lambda: (draw(TRAIN_N), draw(TRAIN_NQ), draw(CLI_NQ)))
     base = torch.from_numpy(base_np).to(device)
     tq = torch.from_numpy(tq_np).to(device)
-    del base_np
     learn = base[:TRAIN_LEARN]
     gt = timed("ground truth: exact 1-NN of 128 queries",
                lambda: assign_nearest(tq, base)).cpu().numpy()
@@ -874,6 +930,11 @@ def main() -> int:
     print(f"recall 4-bit delta (IVF 8x8 ADC - IVF 16x4 Quick ADC): {delta}", flush=True)
     for name, floor in RECALL_FLOORS.items():
         check(recalls[name] >= floor, f"recall {name} = {recalls[name]} below {floor}")
+
+    # ---- 7. the workflow: files, CLI, engine, server, autotune ---------------
+    workflow_phases(torch, np, device, card, base_np, cli_q_np, drive,
+                    Path(workdir.name) / "workflow")
+    del base_np
 
     # ---- 5. the window scans over the trained flat 16x4 and 32x4 codes -------
     fw, fw32 = trained["flat_16x4"], trained["flat_32x4"]
@@ -1049,6 +1110,7 @@ def main() -> int:
     for name, k in kernels.items():
         base = name.split("[")[0]
         line["kernels"].append({**k, "launches": launches[PATH_OF.get(base, "qadc")][base]})
+    workdir.cleanup()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     print(card)
@@ -1056,6 +1118,352 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernels_seen(torch, fn):
+    """({CUDA kernel or copy name: launches}, device-busy ms) as torch.profiler
+    records them in one run of fn, whatever thread or stream launched them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return ({e.key: e.count for e in events},
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def require_kernels(phase: str, seen: dict) -> dict:
+    """The launches of the phase's PROFILED_KERNELS in `seen`; each must be > 0."""
+    counts = {k: sum(n for name, n in seen.items() if k in name) for k in PROFILED_KERNELS[phase]}
+    for k, n in counts.items():
+        check(n > 0, f"{phase}: the profiler saw no launch of {k}")
+    print(f"{phase}: profiler kernel launches {counts}", flush=True)
+    return counts
+
+
+def workflow_phases(torch, np, device, card, base_np, queries_np, drive, work: Path):
+    """Phase 7: the reference's workflow through the port's user-facing
+    layers, on SIFT1M-sized files made from the trained phase's data.
+
+    files: base (1M x 128), learn (its first 100,000), 10,000 queries and
+      their exact top-100 (ops/knn on the card) written as .fvecs / .ivecs,
+      read back by the native path, the numpy path and VectorStream;
+    cli: create-index (IVF-256, OPQ 16x4, balance cap 3), add, info (also
+      as a `python -m` subprocess), query (Quick ADC with rerank, r=100,
+      ma=24, b=32; then --adc-type adc), create-flat 16x4 + add + query
+      (b=128); every recall equals the API search of the saved index;
+    engine: QueryEngine.run at b=32 on the CLI's index, equal to the API;
+    serve: SearchServer (batch 128, 2 ms) under 2,000 requests from 8
+      threads, every answer equal to its bucket's search;
+    crossover: search_qadc forced direct / grouped at b = 1..32;
+    autotune: tune_ivf_qadc at b=32, then a search that consumes the pick.
+    Prints one `workflow` JSON line with every number."""
+    from qadc_tpu_torch import autotune
+    from qadc_tpu_torch.cli.main import main as cli
+    from qadc_tpu_torch.core.tensors import full_f32_matmul
+    from qadc_tpu_torch.engine import QueryEngine
+    from qadc_tpu_torch.eval.recall import recall_at_r
+    from qadc_tpu_torch.index import flat, ivf
+    from qadc_tpu_torch.io import native, vecs
+    from qadc_tpu_torch.io.checkpoint import load_index
+    from qadc_tpu_torch.io.stream import VectorStream
+    from qadc_tpu_torch.kernels import lut_scan
+    from qadc_tpu_torch.ops.knn import exact_knn
+    from qadc_tpu_torch.serve import SearchServer
+
+    report = {"card": card}
+    work.mkdir(parents=True)
+    f = {name: str(work / name) for name in
+         ("base.fvecs", "learn.fvecs", "queries.fvecs", "gt.ivecs", "ivf", "flat")}
+
+    # ---- files ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    base_dev = torch.from_numpy(base_np).to(device)
+    q_dev = torch.from_numpy(queries_np).to(device)
+    with full_f32_matmul():
+        gt = torch.cat([exact_knn(q_dev[s:s + GT_CHUNK], base_dev, GT_K)[1]
+                        for s in range(0, CLI_NQ, GT_CHUNK)]).cpu().numpy()
+    torch.cuda.synchronize()
+    report["gt_s"] = time.perf_counter() - t0
+    del base_dev, q_dev
+    arrays = {"base.fvecs": base_np, "learn.fvecs": base_np[:TRAIN_LEARN],
+              "queries.fvecs": queries_np, "gt.ivecs": gt}
+    lib = native.get_lib()
+    read_path = "native" if lib is not None else "numpy"
+    io_rates = {}
+    for name, a in arrays.items():
+        t0 = time.perf_counter()
+        vecs.save_vectors(f[name], a)
+        write_s = time.perf_counter() - t0
+        mb = os.path.getsize(f[name]) / 1e6
+        to_float = name.endswith(".fvecs")
+        rates = {"write": mb / write_s}
+        for path_name, read in (
+            ("native", lambda: vecs.load_vectors(f[name], to_float=to_float)),
+            ("numpy", lambda: vecs.load_vectors(f[name], to_float=to_float, native=False)),
+            ("stream", lambda: np.concatenate(
+                [c for _, c in VectorStream(f[name], CLI_CHUNK, to_float=to_float)])),
+        ):
+            t0 = time.perf_counter()
+            back = read()
+            rates[path_name] = mb / (time.perf_counter() - t0)
+            check(back.dtype == a.dtype and np.array_equal(back, a),
+                  f"files: {name} read back by {path_name} differs")
+            del back
+        io_rates[name] = {"MB": mb, **rates}
+        print(f"files {name}: {a.shape} {mb:.1f} MB, MB/s write {rates['write']:.0f}, read "
+              f"{read_path} {rates['native']:.0f} / numpy {rates['numpy']:.0f} / VectorStream "
+              f"{rates['stream']:.0f}", flush=True)
+    report.update(read_path=read_path, io=io_rates)
+    print(f"files: read path {read_path} ({lib and native.BUILD_DIR}); exact top-{GT_K} of "
+          f"{CLI_NQ} queries on the card {report['gt_s']:.2f} s [{card}]", flush=True)
+
+    # ---- cli ------------------------------------------------------------------
+    def run_cli(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli([*argv])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = buf.getvalue()
+        for line in out.splitlines():
+            print(f"  cli> {line}")
+        print(f"cli {argv[0]}: {dt:.2f} s [{card}]", flush=True)
+        seconds = report.setdefault("cli_s", {})
+        seconds[argv[0]] = seconds.get(argv[0], 0.0) + dt
+        return out
+
+    def csv(out):
+        header, row = out.strip().splitlines()[-2:]
+        return dict(zip(header.split(","), row.split(",")))
+
+    def api_labels(search, b):
+        """The API's search of the queries in batches of b, the tail padded
+        with zero queries as QueryEngine pads it."""
+        out = []
+        for s in range(0, CLI_NQ, b):
+            real = queries_np[s:s + b]
+            batch = np.zeros((b, real.shape[1]), np.float32)
+            batch[:len(real)] = real
+            out.append(search(torch.from_numpy(batch).to(device))[1][:len(real)])
+        return torch.cat(out).cpu().numpy()
+
+    run_cli("create-index", f["learn.fvecs"], f["ivf"], "--parts", "256", "--sq", "16x4",
+            "--opq", "--seed", "0")
+    run_cli("add", f["ivf"], f["base.fvecs"], "--chunk-size", str(CLI_CHUNK))
+    info = run_cli("info", f["ivf"])
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-m", "qadc_tpu_torch.cli.main", "info", f["ivf"]],
+                         capture_output=True, text=True, timeout=300, cwd=str(work),
+                         env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+    check(sub.returncode == 0 and sub.stdout == info,
+          f"`python -m qadc_tpu_torch.cli.main info` differs: {sub.stdout!r} {sub.stderr[-2000:]}")
+    print(f"cli info as a subprocess: equal text, {time.perf_counter() - t0:.2f} s", flush=True)
+
+    queries = {
+        "cli_ivf_qadc": (f["ivf"], CLI_BATCH, ("-m", str(MA), "-k", str(CLI_KEEP_PCT))),
+        "cli_ivf_adc": (f["ivf"], CLI_BATCH, ("-m", str(MA), "--adc-type", "adc")),
+        "cli_flat_qadc": (f["flat"], FLAT_CLI_BATCH, ("-k", "1")),
+    }
+    rows, seen_all = {}, {}
+    for phase, (idx, b, extra) in queries.items():
+        if phase == "cli_flat_qadc":
+            run_cli("create-flat", "--train", f["learn.fvecs"], f["flat"], "--sq", "16x4")
+            run_cli("add", f["flat"], f["base.fvecs"], "--chunk-size", str(CLI_CHUNK))
+        argv = ("query", idx, f["queries.fvecs"], f["gt.ivecs"], "-r", str(R), "-b", str(b),
+                *extra)
+        rows[phase] = csv(drive(phase, lambda: run_cli(*argv)))
+        # Once more under the profiler, for the kernels it launches only (the
+        # profiler slows the host, so the CSV above is the one kept).
+        seen_all[phase] = require_kernels(phase, kernels_seen(torch, lambda: run_cli(*argv))[0])
+    report["cli"] = rows
+
+    ivf_index, flat_index = load_index(f["ivf"], device), load_index(f["flat"], device)
+    check(ivf_index.n == TRAIN_N and ivf_index.part_count == 256, "cli: IVF index size")
+    print(f"cli IVF index: largest partition {ivf_index.max_part_size}, part_pad "
+          f"{ivf_index.part_pad}", flush=True)
+    keep = CLI_KEEP_PCT / 100.0
+    api = {
+        "cli_ivf_qadc": api_labels(lambda qs: ivf.search_qadc(
+            ivf_index, qs, r=R, ma=MA, keep=keep), CLI_BATCH),
+        "cli_ivf_adc": api_labels(lambda qs: ivf.search_adc(ivf_index, qs, r=R, ma=MA),
+                                  CLI_BATCH),
+        "cli_flat_qadc": api_labels(lambda qs: flat.search_qadc(flat_index, qs, r=R, keep=0.01),
+                                    FLAT_CLI_BATCH),
+    }
+    for phase, row in rows.items():
+        want = recall_at_r(api[phase], gt)
+        check(float(row["recall"]) == want,
+              f"{phase}: CLI recall {row['recall']} != the API search's {want}")
+        print(f"{phase}: recall@{R} {row['recall']} over {CLI_NQ} queries equals the API "
+              f"search of the saved index; phases us/query index {row['index_us']} rotate "
+              f"{row['rotate_us']} table {row['table_us']} scan {row['scan_us']} [{card}]",
+              flush=True)
+    ivf_recall = float(rows["cli_ivf_qadc"]["recall"])
+    check(ivf_recall >= RECALL_FLOORS["ivf256_16x4_qadc_ma24"],
+          f"cli: IVF Quick ADC recall {ivf_recall} below its floor")
+
+    # ---- engine ---------------------------------------------------------------
+    engine = QueryEngine(ivf_index, r=R, ma=MA, keep=keep, adc_type="qadc", batch_size=CLI_BATCH)
+    _, labels, metrics = drive("engine", lambda: engine.run(queries_np, with_metrics=True))
+    check(np.array_equal(labels, api["cli_ivf_qadc"]), "engine: labels differ from the API's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(queries_np)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    seen, busy_ms = kernels_seen(torch, lambda: engine.run(queries_np))
+    seen_all["engine"] = require_kernels("engine", seen)
+    report["engine"] = {"csv": f"{metrics.HEADER}\n{metrics.csv_row()}",
+                        "us_per_query": wall_ms * 1e3 / CLI_NQ, "busy_ms": busy_ms,
+                        "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms}
+    print(f"engine b={CLI_BATCH}: labels equal the API's; phases {metrics.HEADER} = "
+          f"{metrics.csv_row()}; {CLI_NQ} queries {wall_ms:.1f} ms "
+          f"({wall_ms * 1e3 / CLI_NQ:.2f} us/query), device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f} [{card}]", flush=True)
+
+    # ---- serve ----------------------------------------------------------------
+    def serve_run():
+        done = {}
+        submitted = {}
+        futs = [None] * SERVE_REQUESTS
+
+        def submit(i):
+            submitted[i] = time.perf_counter()
+            futs[i] = srv.submit(queries_np[i])
+            futs[i].add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+
+        with SearchServer(ivf_index, r=R, ma=MA, keep=keep, batch_size=SERVE_BATCH,
+                          max_wait_ms=SERVE_WAIT_MS) as srv:
+            submit(0)  # a lone request: bucket 1, the direct path
+            futs[0].result(timeout=300)
+            t_burst = time.perf_counter()
+            share = -(-(SERVE_REQUESTS - 1) // SERVE_THREADS)
+            workers = [threading.Thread(target=lambda t=t: [
+                submit(i) for i in range(1 + t * share, min(SERVE_REQUESTS, 1 + (t + 1) * share))])
+                for t in range(SERVE_THREADS)]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=300)
+                check(not w.is_alive(), "serve: a caller thread hung")
+            results = [fut.result(timeout=300) for fut in futs]  # raises a batch's error
+            batches = srv._batches
+        end = max(done.values())
+        lat = sorted((done[i] - submitted[i]) * 1e3 for i in range(SERVE_REQUESTS))
+        return results, [fut.bucket for fut in futs], batches, lat, (
+            (SERVE_REQUESTS - 1) / (end - t_burst))
+
+    (results, buckets, batches, lat, qps) = drive("serve", serve_run)
+    check(batches < SERVE_REQUESTS // 4, f"serve: {batches} batches for {SERVE_REQUESTS} requests")
+    by_bucket = {}
+    for i, bsz in enumerate(buckets):
+        by_bucket.setdefault(bsz, []).append(i)
+    for bsz, ids in sorted(by_bucket.items()):
+        for s in range(0, len(ids), bsz):
+            chunk = ids[s:s + bsz]
+            batch = np.zeros((bsz, queries_np.shape[1]), np.float32)
+            batch[:len(chunk)] = queries_np[chunk]
+            wd, wl = ivf.search_qadc(ivf_index, torch.from_numpy(batch).to(device), r=R, ma=MA,
+                                     keep=keep)
+            wd, wl = wd.cpu().numpy(), wl.cpu().numpy()
+            for j, i in enumerate(chunk):
+                d, lab = results[i]
+                check(np.array_equal(lab, wl[j]), f"serve: request {i} (bucket {bsz}) labels")
+                np.testing.assert_allclose(d, wd[j], rtol=SERVE_RTOL,
+                                           err_msg=f"serve: request {i} (bucket {bsz})")
+    counts = {b: len(ids) for b, ids in sorted(by_bucket.items())}
+    p50, p99 = statistics.median(lat), lat[int(0.99 * (len(lat) - 1))]
+    report["serve"] = {"batches": batches, "requests_by_bucket": counts, "p50_ms": p50,
+                       "p99_ms": p99, "qps": qps}
+    print(f"serve: {SERVE_REQUESTS} requests from {SERVE_THREADS} threads in {batches} batches "
+          f"(requests by bucket {counts}), every answer equal to its bucket's search; latency "
+          f"p50 {p50:.2f} ms p99 {p99:.2f} ms, {qps:.0f} QPS [{card}]", flush=True)
+
+    # Where a batch's time goes: the same burst through a search_fn that
+    # times the search inside the executor (to the results on the host).
+    inside = []
+
+    def timed_search(index, batch):
+        t0 = time.perf_counter()
+        d, lab = ivf.search_qadc(index, batch, r=R, ma=MA, keep=keep)
+        out = d.cpu(), lab.cpu()
+        inside.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with SearchServer(ivf_index, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      search_fn=timed_search) as srv:
+        t0 = time.perf_counter()
+        for fut in [srv.submit(q) for q in queries_np[1:SERVE_REQUESTS]]:
+            fut.result(timeout=300)
+        wall = (time.perf_counter() - t0) * 1e3
+    report["serve"].update(split_batches=len(inside), split_wall_ms=wall,
+                           split_search_ms=inside)
+    print(f"serve split: {SERVE_REQUESTS - 1} requests in {len(inside)} batches, {wall:.1f} ms; "
+          f"the search inside the executor {sum(inside):.1f} ms (median "
+          f"{statistics.median(inside):.2f} ms a batch, first {inside[0]:.2f}) [{card}]",
+          flush=True)
+
+    def serve_small():  # a lone request (bucket 1) and a full batch, profiled
+        with SearchServer(ivf_index, r=R, ma=MA, keep=keep, batch_size=SERVE_BATCH,
+                          max_wait_ms=50.0) as srv:
+            srv.submit(queries_np[0]).result(timeout=300)
+            for fut in [srv.submit(q) for q in queries_np[:SERVE_BATCH]]:
+                fut.result(timeout=300)
+
+    seen_all["serve"] = require_kernels("serve", kernels_seen(torch, serve_small)[0])
+
+    # ---- direct / grouped crossover -------------------------------------------
+    def crossover():
+        out = {}
+        for b in CROSSOVER_BATCHES:
+            qs = torch.from_numpy(queries_np[:b]).to(device)
+            for path, kw in (("direct", {"direct": True}), ("grouped", {"direct": False,
+                                                                        "grouped": True})):
+                fn = lambda: ivf.search_qadc(ivf_index, qs, r=R, ma=MA, keep=keep,  # noqa: E731
+                                             **kw)
+                ms = time_ms(torch, fn, CROSSOVER_REPS)[0]
+                busy = device_ms(torch, fn, reps=CROSSOVER_REPS)
+                out.setdefault(b, {})[path] = {"us_per_query": ms * 1e3 / b, "busy_us": busy * 1e3}
+            d, g = out[b]["direct"], out[b]["grouped"]
+            print(f"crossover b={b}: direct {d['us_per_query']:.2f} us/query (device busy "
+                  f"{d['busy_us']:.1f} us/batch), grouped {g['us_per_query']:.2f} "
+                  f"({g['busy_us']:.1f}) [{card}]", flush=True)
+        return out
+
+    report["crossover"] = drive("crossover", crossover)
+    rule = {b: ("direct" if (b * MA * ivf_index.part_pad <= ivf.DIRECT_MAX_CODES
+                             or b * MA / min(ivf_index.part_count, b * MA)
+                             <= ivf.DIRECT_MAX_DENSITY) else "grouped")
+            for b in CROSSOVER_BATCHES}
+    report["crossover_rule"] = rule
+    print(f"crossover: DIRECT_MAX_CODES / DIRECT_MAX_DENSITY send b={rule} (unchanged)",
+          flush=True)
+
+    # ---- autotune -------------------------------------------------------------
+    q32 = torch.from_numpy(queries_np[:CLI_BATCH]).to(device)
+
+    def tune():
+        pick = autotune.tune_ivf_qadc(ivf_index, q32, r=R, ma=MA, keep=keep, verbose=True)
+        key = autotune.geometry_key(ivf_index, "ivf_qadc_grouped", CLI_BATCH)
+        check(key.startswith(torch.cuda.get_device_name(device) + "|"), f"autotune key {key}")
+        check(autotune.lookup(key) == pick or not pick, "autotune: the pick was not recorded")
+        got = ivf.search_qadc(ivf_index, q32, r=R, ma=MA, keep=keep)
+        want = ivf.search_qadc(ivf_index, q32, r=R, ma=MA, keep=keep,
+                               group_size=autotune.DEFAULT_GROUP_SIZE)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "autotune: the pick changed the results")
+        return pick, key
+
+    pick, key = drive("autotune", tune)
+    report["autotune"] = {"pick": pick, "key": key}
+    print(f"autotune: pick {pick} under {key}; search_qadc with no group_size consumes it and "
+          f"gives the API's results [{card}]", flush=True)
+    report["profiled_kernels"] = seen_all
+    print(json.dumps({"workflow": report}, default=float), flush=True)
 
 
 def oracle(torch, index, queries, code_view, unpack_codes, ivf):

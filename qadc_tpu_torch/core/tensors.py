@@ -9,6 +9,7 @@ there is no card: the copy raises.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -44,14 +45,33 @@ def as_generator(generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(generator))
 
 
+# torch's float32 matmul precision is one setting for the whole process:
+# the guards of all threads share it, and the first to enter saves it.
+_precision_lock = threading.Lock()
+_precision_depth = 0
+_precision_saved = "highest"
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Float32 matrix products in full float32 (no TF32) inside the block,
-    whatever the process-wide setting; the setting is restored after. The
-    JAX package pins Precision.HIGHEST on the same products."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    whatever the process-wide setting. The JAX package pins
+    Precision.HIGHEST on the same products.
+
+    Safe across threads and nested: the setting is saved when the first
+    guard of the process opens and restored when the last one closes, so no
+    thread's product inside a guard runs in TF32 because another thread
+    left its own."""
+    global _precision_depth, _precision_saved
+    with _precision_lock:
+        if _precision_depth == 0:
+            _precision_saved = torch.get_float32_matmul_precision()
+            torch.set_float32_matmul_precision("highest")
+        _precision_depth += 1
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
+        with _precision_lock:
+            _precision_depth -= 1
+            if _precision_depth == 0:
+                torch.set_float32_matmul_precision(_precision_saved)

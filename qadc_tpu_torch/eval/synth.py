@@ -86,6 +86,15 @@ def sift_moment_like(rng, n, nq=256, clusters=2048, spread=0.5, dim=128):
     cells carry less gradient energy), hierarchical clusters, per-sample
     illumination scaling, uint8 quantization.
     """
+    draw = sift_moment_sampler(rng, clusters, spread, dim)
+    return draw(n), draw(nq)
+
+
+def sift_moment_sampler(rng, clusters=2048, spread=0.5, dim=128):
+    """sift_moment_like's cluster centres, drawn now, and its sampler:
+    draw(k) -> (k, dim) float32 vectors around them. sift_moment_like(rng,
+    n, nq) is draw(n), draw(nq); a further draw(k) takes more vectors of the
+    same set without changing those."""
     cell_w = np.array([
         0.55, 0.75, 0.75, 0.55,
         0.75, 1.0, 1.0, 0.75,
@@ -102,7 +111,7 @@ def sift_moment_like(rng, n, nq=256, clusters=2048, spread=0.5, dim=128):
         x = x + rng.normal(scale=spread * (c + 8.0)).astype(np.float32)
         return np.clip(np.rint(x), 0, 255).astype(np.float32)
 
-    return draw(n), draw(nq)
+    return draw
 
 
 def gist_moment_like(rng, n, nq=256, clusters=2048, spread=0.45, dim=960):

@@ -36,6 +36,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from qadc_tpu_torch import autotune
 from qadc_tpu_torch.core.layout import code_view, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
 from qadc_tpu_torch.core.tensors import (DEFAULT_DEVICE, as_f32, as_generator,
@@ -469,7 +470,7 @@ def window_rerank(
 
 def search_qadc(
     index: IVFIndex, queries, r: int = 100, ma: int = 1, keep: float = 0.01,
-    rerank: bool = True, grouped: bool | None = None, group_size: int = 128,
+    rerank: bool = True, grouped: bool | None = None, group_size: int | None = None,
     saturate: bool = False, direct: bool | None = None,
     scan_budget_bytes: int | None = None, bound=None, screen_windows: int = 0,
     kernels: Kernels = DISPATCH,
@@ -478,7 +479,7 @@ def search_qadc(
 
     The arguments are the JAX package's (ivf.search_qadc), less the TPU
     knobs: windows are always whole storage rows (grouped_window = cpr), so
-    block_n does not exist here, and nothing is autotuned.
+    block_n does not exist here.
 
     rerank: float-rerank the int8-screened windows (default); False ranks by
       quantized distance, as the reference does.
@@ -488,6 +489,10 @@ def search_qadc(
       index: always grouped) when the geometry allows (sq_count 16 or 32,
       part_pad a multiple of 512). grouped=False, or another geometry, takes
       the per-probe path (_search_qadc_impl), the JAX package's CPU path.
+    group_size: pairs a grouped scan serves together (index/routing.py).
+      None takes the pick autotune recorded for this geometry and batch
+      bucket (tuning first under QADC_AUTOTUNE=1), else
+      autotune.DEFAULT_GROUP_SIZE; the results do not depend on it.
     saturate: reproduce the reference's saturating int8 sums (min(sum, 127)).
     scan_budget_bytes: memory governor budget (default: 35% of the card's
       memory, at least SCAN_BUDGET_BYTES); larger batches run in chunks.
@@ -525,6 +530,13 @@ def search_qadc(
         )
     if grouped is None:
         grouped = geometry_ok
+    if grouped and group_size is None:
+        pick = autotune.lookup(autotune.geometry_key(index, "ivf_qadc_grouped", q))
+        if not pick and autotune.enabled():
+            pick = autotune.tune_ivf_qadc(index, queries, r=r, ma=ma, keep=keep)
+        group_size = pick.get("group_size", autotune.DEFAULT_GROUP_SIZE)
+    if group_size is not None and group_size < 1:
+        raise ValueError(f"group_size must be >= 1, got {group_size}")
     prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
     prefix_pad = min(prefix_pad, index.part_pad)
     if bound is not None:

@@ -13,11 +13,11 @@ compiler.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -144,13 +144,26 @@ def build() -> tuple[Path, str]:
     return lib, "".join(log)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    path, _ = build()
+def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+_lock = threading.Lock()
+_library: ctypes.CDLL | None = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call. Threads that reach
+    it together build once: the others wait on the lock."""
+    global _library
+    if _library is not None:  # set once, never reset: no lock on a launch
+        return _library
+    with _lock:
+        if _library is None:
+            _library = _load(build()[0])
+        return _library
