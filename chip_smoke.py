@@ -17,7 +17,11 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
   1. kernel phases: each kernel against its plain PyTorch version on the
      card, at the shapes the search gives it (M1 at b=32's and b=128's
      routed groups, by the tensor-core kernel and by the lookup kernel;
-     M2 at b=128's keep-prefix and rerank shapes, M3 at b=1's 24 pairs; M1
+     M2 by its staged kernel and by the arm it replaced (rows_adc_cached),
+     equal bit for bit, at the id lists that IVF qadc b=128 and b=32, flat
+     qadc b=128 and adc4 b=32 hand it (each launch's keep-prefix and rerank
+     lists, recorded through a Kernels whose rows_adc keeps its arguments)
+     and at random rerank ids; M3 at b=1's 24 pairs; M1
      with float tables and grouped_scan8 on the 16x4 and 8x8 indexes, by
      their slot-minor kernels and by the kernels they replaced (the _lookup
      arms, timed beside them), at search_adc's routed groups of 32 and 128
@@ -167,7 +171,7 @@ PATH_KERNELS = {
 }
 # The replaced kernels are A/B instruments: no search path may launch them.
 LOOKUP_ONLY = ("grouped_scan_lookup", "grouped_scan_f32_lookup", "grouped_scan8_lookup",
-               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup")
+               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup", "rows_adc_cached")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
            "grouped_scan_f32_lookup": "adc4", "grouped_scan8_lookup": "adc8",
@@ -367,13 +371,15 @@ def main() -> int:
     kernels = {}
 
     def kernel_phase(name, cu_name, source, replaces, kernel_fn, plain_fn, compare,
-                     in_bytes, ops, peak, library_fn=None, reps=REPS):
+                     in_bytes, ops, peak, library_fn=None, reps=REPS, path=None):
         """Hold a kernel to its plain version, time both, and bound it:
         in_bytes are the input bytes the function must read (the outputs'
         are added here), ops its additions, peak their peak rate. A lab mode
         whose output nothing defines has no plain_fn: its error and plain
         times are null. library_fn: the one PyTorch call that computes the
-        same function, where there is one (no such call computes a LUT scan)."""
+        same function, where there is one (no such call computes a LUT scan).
+        path: the search path whose run gives the row its launch count
+        (default: PATH_OF by the kernel's name)."""
         got = kernel_fn()
         torch.cuda.synchronize()
         err = plain_ms = plain_call_ms = None
@@ -396,7 +402,7 @@ def main() -> int:
                          "replaces": replaces, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
                          "library_ms": library_ms, "profiled_launches": recorded,
-                         "call_ms": call_ms, "plain_call_ms": plain_call_ms}
+                         "call_ms": call_ms, "plain_call_ms": plain_call_ms, "path": path}
         check(ms >= least, f"kernel {name}: {ms} ms is below its bound {least}")
         fmt = lambda x: "none" if x is None else f"{x:.4g}"  # noqa: E731
         print(f"kernel {name}: max_abs_err={fmt(err)} device ms={ms:.4f} over {recorded} recorded "
@@ -447,33 +453,6 @@ def main() -> int:
                          *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
 
     rpp = index.codes.shape[1]
-    ppr = -(-prefix_pad // index.cpr)
-    flat_rows = index.codes.reshape(-1, 128)
-    gen = torch.Generator(device=device).manual_seed(0)
-    a_rerank = qb.shape[0] * R                     # Q * wq selected windows
-    m2_shapes = {
-        "keep-prefix": (
-            (parts.reshape(qa, 1) * rpp + torch.arange(ppr, device=device,
-                                                       dtype=torch.int32)).reshape(-1),
-            torch.arange(qa, device=device, dtype=torch.int32).repeat_interleave(ppr)),
-        "rerank": (
-            torch.randint(0, flat_rows.shape[0], (a_rerank,), generator=gen,
-                          device=device, dtype=torch.int32),
-            torch.randint(0, qa, (a_rerank,), generator=gen, device=device,
-                          dtype=torch.int32)),
-    }
-    for shape_name, (row_ids, pair_ids) in m2_shapes.items():
-        m2_args = (flat_rows, row_ids, pair_ids, tlo, thi)
-        kernel_phase(f"rows_adc[{shape_name} A={row_ids.shape[0]}]", "rows_adc_kernel",
-                     "qadc_tpu_torch/csrc/rows_adc.cu", "qadc_tpu/kernels/lut_scan.py:1148",
-                     lambda: lut_scan.rows_adc(*m2_args),
-                     lambda: lut_scan.rows_adc_plain(*m2_args),
-                     lambda got, want: float_err(torch, got, want, "rows_adc"),
-                     # each scored row and referenced table once, the two id lists
-                     torch.unique(row_ids).numel() * 128 + nbytes(row_ids, pair_ids)
-                     + torch.unique(pair_ids).numel() * 2 * tlo.shape[1] * 4,
-                     row_ids.shape[0] * index.cpr * index.pq.sq_count, PEAK_F32)
-
     p1, rot1 = ivf.assign_queries(index, queries[1], MA)
     t1lo, t1hi = ivf.tile_tables_rows(
         ivf.adc_tables(rot1, index.pq.centroids).reshape(MA, 16, 16))
@@ -675,6 +654,86 @@ def main() -> int:
                      lambda: lut_scan.flat_scan8_plain(fi8.codes, ft8, fi8.n),
                      argmin_err(name), *flat_work(fi8.codes, ft8, fi8.n),
                      reps=ARM_REPS if name == "flat_scan8_lookup" else REPS)
+
+    # M2 at the id lists the searches hand it: a Kernels whose rows_adc
+    # records each launch's arguments, then calls the real one. The staged
+    # kernel and the arm it replaced (rows_adc_cached) at each, and at random
+    # rerank ids (no runs: the worst case).
+    def recorded_m2(run):
+        calls = []
+
+        def rows_adc(*args):
+            calls.append(args)
+            return lut_scan.rows_adc(*args)
+
+        run(lut_scan.DISPATCH._replace(rows_adc=rows_adc))
+        torch.cuda.synchronize()
+        return calls
+
+    m2_runs = {
+        "ivf b=128": ("qadc", ("keep-prefix", "rerank"), lambda k: ivf.search_qadc(
+            index, qb, r=R, ma=MA, keep=KEEP, kernels=k)),
+        "ivf b=32": ("qadc", ("keep-prefix", "rerank"), lambda k: ivf.search_qadc(
+            index, q32, r=R, ma=MA, keep=KEEP, kernels=k)),
+        "flat b=128": ("flat_qadc", ("keep-prefix", "rerank"), lambda k: flat.search_qadc(
+            fi4, fq[FLAT_BATCH["flat_qadc"]], r=R, keep=FLAT_KEEP, kernels=k)),
+        "adc4 b=32": ("adc4", ("rerank",), lambda k: ivf.search_adc(
+            index, queries[ADC_BATCH], r=R, ma=MA, kernels=k)),
+    }
+    m2_shapes = []
+    for tag, (path, stages, run) in m2_runs.items():
+        calls = recorded_m2(run)
+        check(len(calls) == len(stages), f"{tag}: {len(calls)} rows_adc launches, not {len(stages)}")
+        m2_shapes += [(f"{tag} {stage}", path, args) for stage, args in zip(stages, calls)]
+    gen = torch.Generator(device=device).manual_seed(0)
+    flat_rows = index.codes.reshape(-1, 128)
+    a_rand = qb.shape[0] * R
+    m2_shapes.append(("random", "qadc", (
+        flat_rows,
+        torch.randint(0, flat_rows.shape[0], (a_rand,), generator=gen, device=device,
+                      dtype=torch.int32),
+        torch.randint(0, qa, (a_rand,), generator=gen, device=device, dtype=torch.int32),
+        tlo, thi)))
+
+    def m2_exact(what):
+        def compare(got, want):
+            check(torch.equal(got, want), f"{what} differs from rows_adc_plain")
+            return 0.0
+        return compare
+
+    m2_src = "qadc_tpu_torch/csrc/rows_adc.cu"
+    for shape, path, m2_args in m2_shapes:
+        row_ids, pair_ids = m2_args[1:3]
+        cpr = 128 // (m2_args[3].shape[1] // 16)
+        got = lut_scan.rows_adc(*m2_args)
+        check(torch.equal(got, lut_scan.rows_adc_cached(*m2_args))
+              and torch.equal(got, lut_scan.rows_adc_staged_plain(*m2_args)),
+              f"rows_adc[{shape}] differs from the arm or its staged walk")
+        del got
+        runs = lut_scan.rows_adc_runs(pair_ids)[0].sum(1).float()
+        a = row_ids.shape[0]
+        print(f"rows_adc [{shape}]: A={a}, {torch.unique(row_ids).numel()} rows, "
+              f"{torch.unique(pair_ids).numel()} pairs, runs a tile of "
+              f"{lut_scan.ROWS_ADC_TILE}: mean {float(runs.mean()):.2f} max {int(runs.max())}",
+              flush=True)
+        # each scored row and referenced table once, the two id lists
+        moved = (torch.unique(row_ids).numel() * 128 + nbytes(row_ids, pair_ids)
+                 + torch.unique(pair_ids).numel() * 2 * m2_args[3].shape[1] * 4)
+        name = ("keep-prefix" if shape == "ivf b=128 keep-prefix" else
+                "rerank" if shape == "random" else shape)
+        for base, fn, cu_name in (("rows_adc", lut_scan.rows_adc, "rows_adc_kernel"),
+                                  ("rows_adc_cached", lut_scan.rows_adc_cached,
+                                   "rows_adc_cached_kernel")):
+            kernel_phase(f"{base}[{name} A={a}]", cu_name, m2_src,
+                         "qadc_tpu/kernels/lut_scan.py:1148",
+                         lambda fn=fn, m2_args=m2_args: fn(*m2_args),
+                         lambda m2_args=m2_args: lut_scan.rows_adc_plain(*m2_args),
+                         m2_exact(base), moved, a * cpr * index.pq.sq_count, PEAK_F32,
+                         path=path)
+    m2_ab = {k[len("rows_adc["):-1]: (v["ms"], kernels["rows_adc_cached" + k[len("rows_adc"):]]["ms"])
+             for k, v in kernels.items() if k.startswith("rows_adc[")}
+    print("M2 A/B, device ms staged / arm: " + "; ".join(
+        f"{k} {new:.5f} / {arm:.5f}" for k, (new, arm) in m2_ab.items()) + f" [{card}]", flush=True)
 
     # ---- 2. the main path, through the kernels -----------------------------
     def search(b, kernels_=lut_scan.DISPATCH):
@@ -1088,6 +1147,8 @@ def main() -> int:
                  lambda: scan_lab.selector_sum_plain(sel_x, 8),
                  lambda got, want: float_err(torch, got, want, "selector_sum"),
                  nbytes(sel_x), 512 * 128, PEAK_F32, library_fn=lambda: torch.matmul(sel_x, sel))
+    print(f"selector_sum (512, 128) cb 8: {kernels['selector_sum']['ms']:.5f} ms, torch.matmul "
+          f"{kernels['selector_sum']['library_ms']:.5f} [{card}]", flush=True)
     ab_ms = {name: device_ms(torch, fn, scan_lab.AB_KERNELS[name])
              for name, fn in scan_lab.ab_scans(fw.codes, wqt, fw.n).items()}
     print(f"A/B b=128 x {fw.n_pad} trained 16x4 codes, device ms: flat_scan (int8 one-hot x "
@@ -1109,7 +1170,8 @@ def main() -> int:
     line = {"kernels": []}
     for name, k in kernels.items():
         base = name.split("[")[0]
-        line["kernels"].append({**k, "launches": launches[PATH_OF.get(base, "qadc")][base]})
+        path = k.pop("path") or PATH_OF.get(base, "qadc")
+        line["kernels"].append({**k, "launches": launches[path][base]})
     workdir.cleanup()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))

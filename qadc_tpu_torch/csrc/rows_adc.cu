@@ -1,6 +1,8 @@
-// Kernels M2 (rows_adc) and M3 (direct_scan): exact float32 ADC of 4-bit
-// PQ codes stored as 128-byte rows. The two share one per-code device
-// function and stay two kernels with two entry points.
+// Kernels M2 (rows_adc; rows_adc_cached, the formulation it replaced, kept
+// as an A/B arm) and M3 (direct_scan): exact float32 ADC of 4-bit PQ codes
+// stored as 128-byte rows, each kernel with its own entry point. The arm and
+// M3 share one per-code device function (adc_code); the staged M2 sums the
+// same terms in the same order from its own layout (adc_code_staged).
 //
 // M2 replaces qadc_tpu/kernels/lut_scan.py:rows_adc_accumulate together with
 // the selector matmul of qadc_tpu/index/ivf.py:rows_adc that reduces its
@@ -20,18 +22,42 @@
 // What bounds them on the H100: M3 reads each probed code once (8 bytes at
 // 16x4 PQ) and writes 4 bytes of distance, so at b=1 (24 partitions, 98,304
 // codes, ~1.2 MB) it is bound by launch latency and by the lookups, not by
-// device memory. M2's rows are scattered (one 128-byte row per selected
-// window), so it is bound by the latency of those row reads.
+// device memory. M2 moves little (its rows repeat: the flat keep-prefix
+// scores the same 625 rows for every query; each table is 1 KB at CB = 8),
+// so it is bound by latency: a chain of dependent loads (ids, then codes and
+// tables) in blocks that live a few microseconds, and by its 2*CB table
+// lookups a code (20.5 M in the flat keep-prefix at b=128).
 //
-// Design: one thread per code. A code's CB bytes come in one 8- or 16-byte
-// load, and neighbouring threads read neighbouring codes. M3 stages its
-// pair's two compact tables in shared memory transposed to [byte][centroid],
-// so a warp's 32 lookups of one byte position fall in 16 consecutive words
-// and never conflict; tile minima are a warp shuffle reduction (a warp is
-// one 32-code tile). M2's tables stay in device memory and are read through
-// the read-only cache: each pair's 1 KB is reused by all the codes of its
-// rows. Sums run in float32 in the order b = 0..CB-1, low then high nibble,
-// which the plain PyTorch versions repeat.
+// M2's design (rows_adc_kernel): a block takes a tile of kTile = 16
+// consecutive entries, one thread a code (a half-warp reads a row at CB = 8,
+// a quarter-warp at CB = 16). Runs of equal pair ids are found in the tile
+// (no sort, the callers' order: the flat keep-prefix has one pair for 625
+// rows, the IVF keep-prefix runs of ppr, the rerank runs of about 2 in screen
+// order). Each run's two tables are staged once in shared memory (a slot),
+// by the warp that holds the run's first row: coalesced 16-byte loads issued
+// together with the code loads, since both need only the ids (the ballot that
+// numbers the runs is taken while they are in flight). A slot holds each
+// table as rows of 16 words by byte position (staged_word: two swizzles make
+// the staging stores conflict-free); a slot is 32*CB + 16 words, 16 more
+// than 32 banks divide, and consecutive runs take consecutive slots, so the
+// two rows of a warp at CB = 8 look up in opposite bank halves: each lookup
+// at a fixed byte position is one wavefront. (At CB = 16 four rows share a
+// warp, and distinct pairs may meet 2-way.) Nibble offsets come four at a
+// time from one mask and a byte permute. Measured on the card, tiles of 16
+// (17 KB of shared memory a block at CB = 8) beat tiles of 32 (35 KB) at
+// every shape but the flat keep-prefix, where they tie: more and smaller
+// blocks, each waiting at its barrier for fewer warps.
+//
+// rows_adc_cached_kernel is the formulation it replaced, kept as an A/B arm
+// (lut_scan.rows_adc_cached; no search launches it): one thread a code, the
+// tables read from device memory through L1, where a half-warp's 16 lookups
+// of one byte position fall on up to 4 lines (8 for a warp of two pairs).
+//
+// M3 stages its pair's two compact tables in shared memory transposed to
+// [byte][centroid], a block a pair; tile minima are a warp shuffle
+// reduction (a warp is one 32-code tile). Sums run in float32 in the order
+// b = 0..CB-1, low then high nibble, with no contraction (only adds), which
+// the plain PyTorch versions repeat: all three kernels agree bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,8 +103,55 @@ __device__ __forceinline__ float adc_code(const uint32_t* w, const float* lo,
   return acc;
 }
 
+// M2's tile: entries (storage rows) a block.
+constexpr int kTile = 16;
+
 template <int CB>
-__global__ void __launch_bounds__(kThreads)
+struct Staged {
+  static constexpr int kCpr = 128 / CB;
+  static constexpr int kThreads = kTile * kCpr;         // a thread a code: 256 / 128
+  static constexpr int kRowsPerWarp = 32 / kCpr;        // 2 / 4
+  static constexpr int kLoads = CB / 8;                 // float4s a lane loads of a table
+  static constexpr int kHi = 16 * CB;                   // words from a slot's lo to its hi table
+  static constexpr int kSlot = 32 * CB + 16;            // words a slot: 16 (mod 32)
+  static constexpr int kSmem = kTile * kSlot * 4;       // 17,408 / 33,792 bytes
+};
+
+// Word of (byte position b, centroid j) in a staged table: a row of 16 words
+// a byte position, rows b >= 4 of each group of 8 swapped in pairs and
+// centroids of bytes 8-15 flipped by 8, so that a warp's staging stores
+// (lane l: float4 l of the table, centroid j and four byte positions) fall
+// in 32 distinct banks; a lookup at one b reads 16 consecutive words.
+__host__ __device__ constexpr int staged_row(int b) { return b ^ ((b >> 2) & 1); }
+__host__ __device__ constexpr int staged_word(int b, int j) {
+  return staged_row(b) * 16 + (j ^ (((b >> 3) & 1) * 8));
+}
+
+// adc_code over one staged slot: 4 * nibble of four code bytes from one mask
+// each (the centroid swizzle folded in), a byte permute a lookup.
+template <int CB>
+__device__ __forceinline__ float adc_code_staged(const uint32_t* w, const float* lo,
+                                                 const float* hi) {
+  const char* l = reinterpret_cast<const char*>(lo);
+  const char* h = reinterpret_cast<const char*>(hi);
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 0; q < CB / 4; ++q) {
+    const uint32_t swz = q >= 2 ? 0x20202020u : 0u;          // j ^ 8 for bytes 8-15
+    const uint32_t l4 = ((w[q] << 2) & 0x3C3C3C3Cu) ^ swz;   // 4 * low nibble a byte
+    const uint32_t h4 = ((w[q] >> 2) & 0x3C3C3C3Cu) ^ swz;   // 4 * high nibble
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = staged_row(4 * q + k) * 64;            // bytes
+      acc += *reinterpret_cast<const float*>(l + row + __byte_perm(l4, 0, 0x4440 + k));
+      acc += *reinterpret_cast<const float*>(h + row + __byte_perm(h4, 0, 0x4440 + k));
+    }
+  }
+  return acc;
+}
+
+template <int CB>
+__global__ void __launch_bounds__(Staged<CB>::kThreads)
 rows_adc_kernel(const uint8_t* __restrict__ codes,   // (R, 128) all storage rows
                 const int32_t* __restrict__ row_ids, // (A,)
                 const int32_t* __restrict__ pair_ids,// (A,)
@@ -86,6 +159,99 @@ rows_adc_kernel(const uint8_t* __restrict__ codes,   // (R, 128) all storage row
                 const float* __restrict__ thi,
                 float* __restrict__ out,             // (A, cpr)
                 int a_count) {
+  using L = Staged<CB>;
+  extern __shared__ float s_tab[];  // kTile slots: [lo | hi | 16 pad], each staged_word
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int live = static_cast<int>(min(static_cast<long long>(kTile), a_count - tile0));
+  const int t = threadIdx.x / L::kCpr, c = threadIdx.x % L::kCpr;  // this thread's code
+  const int e0 = warp * L::kRowsPerWarp;                            // the warp's first entry
+
+  // The ids: this thread's row; the pairs of the warp's rows and of the entry
+  // before them (the same address across the warp); lane e's pair for the
+  // ballot below.
+  const int row = t < live ? row_ids[tile0 + t] : 0;
+  int p[L::kRowsPerWarp + 1];
+#pragma unroll
+  for (int i = 0; i <= L::kRowsPerWarp; ++i) {
+    const int e = e0 + i - 1;
+    p[i] = e >= 0 && e < live ? pair_ids[tile0 + e] : -1;
+  }
+  const int pair = lane < live ? pair_ids[tile0 + lane] : -1;
+
+  // The code's bytes, and the tables of each run that starts in the warp's
+  // rows (entry e starts one if e == 0 or its pair differs from e-1's), all
+  // in flight together: nothing but the ids stands before them.
+  uint32_t w[CB / 4];
+  if (t < live) CodeBytes<CB>::load(codes + static_cast<size_t>(row) * 128 + c * CB, w);
+  float4 v[L::kRowsPerWarp][2][L::kLoads];
+#pragma unroll
+  for (int i = 0; i < L::kRowsPerWarp; ++i) {
+    if (p[i + 1] >= 0 && (e0 + i == 0 || p[i + 1] != p[i])) {
+      const auto* lo4 = reinterpret_cast<const float4*>(tlo + static_cast<size_t>(p[i + 1]) * 16 * CB);
+      const auto* hi4 = reinterpret_cast<const float4*>(thi + static_cast<size_t>(p[i + 1]) * 16 * CB);
+#pragma unroll
+      for (int h = 0; h < L::kLoads; ++h) {
+        v[i][0][h] = __ldg(lo4 + 32 * h + lane);
+        v[i][1][h] = __ldg(hi4 + 32 * h + lane);
+      }
+    }
+  }
+
+  // Runs of the tile: bit e of `starts` is set where one starts; a run's
+  // slot is its index (runs before it), consecutive runs, consecutive slots.
+  const int prev = __shfl_up_sync(0xffffffffu, pair, 1);
+  const unsigned starts = __ballot_sync(0xffffffffu, lane < live && (lane == 0 || pair != prev));
+#pragma unroll
+  for (int i = 0; i < L::kRowsPerWarp; ++i) {
+    const int e = e0 + i;
+    if ((starts >> e) & 1u) {
+      float* slot = s_tab + (__popc(starts & ((2u << e) - 1u)) - 1) * L::kSlot;
+#pragma unroll
+      for (int tab = 0; tab < 2; ++tab) {
+#pragma unroll
+        for (int h = 0; h < L::kLoads; ++h) {
+          const int f = 32 * h + lane;  // global lanes 4f .. 4f+3 = j * CB + b0 .. b0+3
+          const int j = 4 * f / CB, b0 = 4 * f % CB;
+          float* dst = slot + tab * L::kHi;
+          dst[staged_word(b0 + 0, j)] = v[i][tab][h].x;
+          dst[staged_word(b0 + 1, j)] = v[i][tab][h].y;
+          dst[staged_word(b0 + 2, j)] = v[i][tab][h].z;
+          dst[staged_word(b0 + 3, j)] = v[i][tab][h].w;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (t < live) {
+    const float* lo = s_tab + (__popc(starts & ((2u << t) - 1u)) - 1) * L::kSlot;
+    out[(tile0 + t) * L::kCpr + c] = adc_code_staged<CB>(w, lo, lo + L::kHi);
+  }
+}
+
+template <int CB>
+cudaError_t launch_rows_adc(const void* codes, const void* row_ids, const void* pair_ids,
+                            const void* tlo, const void* thi, void* out, int a_count,
+                            cudaStream_t stream) {
+  using L = Staged<CB>;
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(a_count) + kTile - 1)
+                                                / kTile);
+  rows_adc_kernel<CB><<<blocks, L::kThreads, L::kSmem, stream>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(row_ids),
+      static_cast<const int32_t*>(pair_ids), static_cast<const float*>(tlo),
+      static_cast<const float*>(thi), static_cast<float*>(out), a_count);
+  return cudaGetLastError();
+}
+
+template <int CB>
+__global__ void __launch_bounds__(kThreads)
+rows_adc_cached_kernel(const uint8_t* __restrict__ codes,   // (R, 128) all storage rows
+                       const int32_t* __restrict__ row_ids, // (A,)
+                       const int32_t* __restrict__ pair_ids,// (A,)
+                       const float* __restrict__ tlo,       // (QA, 16*CB), lane j*CB + b
+                       const float* __restrict__ thi,
+                       float* __restrict__ out,             // (A, cpr)
+                       int a_count) {
   constexpr int kCpr = 128 / CB;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<long long>(a_count) * kCpr) return;
@@ -138,6 +304,21 @@ extern "C" int qadc_rows_adc(const void* codes, const void* row_ids, const void*
                              const void* tlo, const void* thi, void* out, int a_count,
                              int cb, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (a_count < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cb == 8)
+    return static_cast<int>(launch_rows_adc<8>(codes, row_ids, pair_ids, tlo, thi, out,
+                                               a_count, s));
+  if (cb == 16)
+    return static_cast<int>(launch_rows_adc<16>(codes, row_ids, pair_ids, tlo, thi, out,
+                                                a_count, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The replaced M2 (A/B arm): the same arguments and result.
+extern "C" int qadc_rows_adc_cached(const void* codes, const void* row_ids, const void* pair_ids,
+                                    const void* tlo, const void* thi, void* out, int a_count,
+                                    int cb, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
   const long long threads = static_cast<long long>(a_count) * (128 / cb);
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   const auto* c = static_cast<const uint8_t*>(codes);
@@ -147,9 +328,9 @@ extern "C" int qadc_rows_adc(const void* codes, const void* row_ids, const void*
   const auto* hi = static_cast<const float*>(thi);
   auto* o = static_cast<float*>(out);
   if (cb == 8)
-    rows_adc_kernel<8><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
+    rows_adc_cached_kernel<8><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
   else if (cb == 16)
-    rows_adc_kernel<16><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
+    rows_adc_cached_kernel<16><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -22,8 +22,16 @@
 // selector_sum_kernel answers diag_direct's float question on this card:
 // out[r, c] = sum_k x[r, k] * sel[k, c] with sel[k, c] = (k / cb == c), the
 // 0/1 selector that compacts a 128-lane row to its cpr code sums, as float32
-// multiply-adds in registers. A product with 0 or 1 is exact, so the sum
-// holds float32 accuracy (the caller holds it to float64 at 1e-6).
+// multiply-adds on the CUDA cores (not TF32 mma, which would round x: the TPU
+// probe's DEFAULT baseline, not this function). A warp takes a row: lane l
+// reads x[r, 4l .. 4l+3] in one 16-byte load (the row's 512 bytes coalesced),
+// values that all belong to column c = 4l / cb; it multiplies each by its
+// selector entry for c, and a shuffle reduction over the cb / 4 lanes of the
+// code finishes the sum (the selector's zeros fall on the other columns'
+// lanes). A product with 0 or 1 is exact, so the sum holds float32 accuracy
+// (the caller holds it to float64 at 1e-6). Four rows a block: 512 rows fill
+// 128 SMs with one round trip each, where the formulation it replaced ran a
+// thread an output over a serial chain of 128 loads in 32 blocks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,18 +42,26 @@ namespace {
 
 using namespace qadc;
 
-__global__ void selector_sum_kernel(const float* __restrict__ x,  // (rows, 128)
-                                    float* __restrict__ out,      // (rows, 128 / cb)
-                                    int rows, int cb) {
-  const int cpr = 128 / cb;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * cpr) return;
-  const int r = i / cpr;
-  const int c = i - r * cpr;
+constexpr int kSelectorRows = 4;  // rows (warps) a block
+
+template <int CB>
+__global__ void __launch_bounds__(32 * kSelectorRows)
+selector_sum_kernel(const float* __restrict__ x,  // (rows, 128)
+                    float* __restrict__ out,      // (rows, 128 / CB)
+                    int rows) {
+  const int r = blockIdx.x * kSelectorRows + (threadIdx.x >> 5);
+  if (r >= rows) return;  // whole warps leave: the shuffles below run on full warps
+  const int lane = threadIdx.x & 31;
+  const float4 v = __ldg(reinterpret_cast<const float4*>(x + static_cast<size_t>(r) * 128) + lane);
+  const int k = 4 * lane, c = k / CB;
   float acc = 0.0f;
-  for (int k = 0; k < 128; ++k)
-    acc = fmaf(x[static_cast<size_t>(r) * 128 + k], k / cb == c ? 1.0f : 0.0f, acc);
-  out[i] = acc;
+  acc = fmaf(v.x, (k + 0) / CB == c ? 1.0f : 0.0f, acc);
+  acc = fmaf(v.y, (k + 1) / CB == c ? 1.0f : 0.0f, acc);
+  acc = fmaf(v.z, (k + 2) / CB == c ? 1.0f : 0.0f, acc);
+  acc = fmaf(v.w, (k + 3) / CB == c ? 1.0f : 0.0f, acc);
+#pragma unroll
+  for (int off = 1; off < CB / 4; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane % (CB / 4) == 0) out[static_cast<size_t>(r) * (128 / CB) + c] = acc;
 }
 
 template <int MODE>
@@ -84,8 +100,13 @@ extern "C" int qadc_scan_lab(const void* codes, const void* tables, void* out, i
 // x (rows, 128) float32 -> out (rows, 128 / cb) float32, cb 8 or 16.
 extern "C" int qadc_selector_sum(const void* x, void* out, int rows, int cb, void* stream) {
   if (rows < 1 || (cb != 8 && cb != 16)) return static_cast<int>(cudaErrorInvalidValue);
-  const int total = rows * (128 / cb);
-  selector_sum_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows, cb);
+  const unsigned blocks = static_cast<unsigned>((rows + kSelectorRows - 1) / kSelectorRows);
+  const auto* xp = static_cast<const float*>(x);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (cb == 8)
+    selector_sum_kernel<8><<<blocks, 32 * kSelectorRows, 0, s>>>(xp, o, rows);
+  else
+    selector_sum_kernel<16><<<blocks, 32 * kSelectorRows, 0, s>>>(xp, o, rows);
   return static_cast<int>(cudaGetLastError());
 }

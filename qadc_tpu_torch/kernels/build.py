@@ -39,6 +39,7 @@ SIGNATURES = {
     "qadc_grouped_scan8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, row_ids, pair_ids, tlo, thi, out, a_count, cb, stream
     "qadc_rows_adc": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "qadc_rows_adc_cached": (_P, _P, _P, _P, _P, _P, _I, _I, _P),  # as qadc_rows_adc
     # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, stream
     "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, f32, stream

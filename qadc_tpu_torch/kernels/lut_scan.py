@@ -13,7 +13,11 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          grouped scan by the kernels of grouped_scan.cu and
                          grouped_scan8.cu, kept for the A/B against the
                          slot-minor kernels
-  rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul)
+  rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul):
+                         tiles of ROWS_ADC_TILE entries, each run of equal
+                         pair ids' tables staged once in shared memory
+  rows_adc_cached: M2 by the kernel the staged one replaced (tables read
+                         through L1), kept for the A/B
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
                          tables (scan_wgmma.cu from WGMMA_MIN_QUERIES
@@ -121,10 +125,11 @@ GROUPED_WINDOW_SLOTS = 4
 # grouped_scan_lookup and flat_scan_lookup the int8 scans by the lookup
 # kernels, grouped_scan_f32_lookup, grouped_scan8_lookup, flat_scan_f32_lookup
 # and flat_scan8_lookup the float and 8-bit scans by the kernels the
-# slot-minor and query-minor ones replaced, scan_lab, selector_sum and
-# empty_kernel the instruments of kernels/scan_lab.py.
+# slot-minor and query-minor ones replaced, rows_adc_cached M2 by the kernel
+# the staged one replaced, scan_lab, selector_sum and empty_kernel the
+# instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
-            "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
+            "rows_adc": 0, "rows_adc_cached": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
             "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0,
             "grouped_scan_lookup": 0, "grouped_scan_f32_lookup": 0,
             "grouped_scan8_lookup": 0, "flat_scan_lookup": 0,
@@ -538,13 +543,18 @@ def grouped_scan8_slot_minor_plain(codes, tables, group_part, slot_pair, group_s
 # ---------------------------------------------------------------- M2
 
 
+# Entries (storage rows) of one rows_adc tile: a thread block, one ballot.
+ROWS_ADC_TILE = 16
+
+
 def rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
     """Exact float ADC of whole storage rows, one compact table per row.
 
     Args:
       codes_rows: (R, 128) uint8, all storage rows (index.codes flattened).
       row_ids: (A,) int32 rows to score.
-      pair_ids: (A,) int32 table row of each scored row.
+      pair_ids: (A,) int32 table row of each scored row, in any order (runs
+        of equal ids share their tables' staging).
       tlo, thi: (QA, 16*cb) float32 compact tables (ivf.tile_tables_rows):
         lane j*cb + b holds sub-quantizer 2b (tlo) / 2b+1 (thi), centroid j.
 
@@ -552,26 +562,47 @@ def rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
       (A, cpr) float32 distances of the cpr codes of each row, summed in
       float32 over b = 0..cb-1, low nibble then high.
     """
+    if _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
+        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
+    return _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, "rows_adc")
+
+
+def rows_adc_cached(codes_rows, row_ids, pair_ids, tlo, thi):
+    """rows_adc's result by the kernel the staged one replaced (a thread a
+    code, the tables read through L1): the same arguments and distances, bit
+    for bit. An A/B instrument: no search path calls it."""
+    if _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
+        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
+    return _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, "rows_adc_cached")
+
+
+def _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi) -> bool:
+    """Argument checks of M2. Returns whether the tensors lie on the CPU."""
     dev = codes_rows.device
     _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
     _check(row_ids, "row_ids", torch.int32, 1, dev)
     _check(pair_ids, "pair_ids", torch.int32, 1, dev)
     _check(tlo, "tlo", torch.float32, 2, dev)
     _check(thi, "thi", torch.float32, 2, dev)
-    cb = _table_code_bytes(tlo.shape[1])
+    _table_code_bytes(tlo.shape[1])
     if codes_rows.shape[1] != 128 or thi.shape != tlo.shape:
         raise ValueError("need (R, 128) codes and equal tlo/thi shapes")
     if row_ids.shape != pair_ids.shape:
         raise ValueError("row_ids and pair_ids must have one entry per row")
-    if dev.type == "cpu":
-        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
-    _require_cuda(dev, codes_rows)
+    return dev.type == "cpu"
+
+
+def _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, kernel: str):
+    """Launch M2 on checked CUDA tensors; `kernel` is its key in `launches`."""
+    dev = codes_rows.device
+    _require_cuda(dev, codes_rows, tlo, thi)
+    cb = tlo.shape[1] // 16
     a = row_ids.shape[0]
     out = torch.empty((a, 128 // cb), dtype=torch.float32, device=dev)
     if a:
         ptrs = [t.data_ptr() for t in (codes_rows, row_ids, pair_ids, tlo, thi, out)]
-        _launch("qadc_rows_adc", dev, *ptrs, a, cb)
-        launches["rows_adc"] += 1
+        _launch("qadc_" + kernel, dev, *ptrs, a, cb)
+        launches[kernel] += 1
     return out
 
 
@@ -595,6 +626,73 @@ def rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi):
     rows = codes_rows[row_ids.long()].reshape(-1, 128 // cb, cb)
     p = pair_ids.long()
     return _adc_sum(rows, tlo[p], thi[p], cb)
+
+
+def rows_adc_layout(cb: int) -> tuple[int, int]:
+    """(words from a slot's lo table to its hi table, words a slot) of the
+    staged M2's shared memory: a slot is lo, hi and 16 words of padding, so
+    consecutive slots fall 16 banks apart."""
+    return 16 * cb, 32 * cb + 16
+
+
+def rows_adc_word(b, j):
+    """Word of (byte position b, centroid j) in a staged table (csrc/
+    rows_adc.cu:staged_word): rows of 16 words by byte position, rows b >= 4
+    of each group of 8 swapped in pairs, centroids of bytes 8-15 flipped by 8
+    (works on ints and integer tensors)."""
+    return (b ^ ((b >> 2) & 1)) * 16 + (j ^ (((b >> 3) & 1) * 8))
+
+
+def rows_adc_runs(pair_ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The staged M2's tile bookkeeping: (starts (tiles, ROWS_ADC_TILE) bool,
+    where an entry starts a run of equal pair ids inside its tile; slot
+    (tiles, ROWS_ADC_TILE) int64, the run's index in the tile, -1 past A).
+    A tile's first entry always starts a run: a run cut by a tile boundary
+    is staged once in each tile."""
+    a, t = pair_ids.shape[0], ROWS_ADC_TILE
+    tiles = -(-a // t)
+    pad = torch.full((tiles * t,), -1, dtype=torch.int64, device=pair_ids.device)
+    pad[:a] = pair_ids.long()
+    p = pad.reshape(tiles, t)
+    live = (torch.arange(tiles * t, device=p.device) < a).reshape(tiles, t)
+    starts = live.clone()
+    starts[:, 1:] &= p[:, 1:] != p[:, :-1]
+    slot = torch.where(live, starts.long().cumsum(1) - 1, -1)
+    return starts, slot
+
+
+def rows_adc_staged_plain(codes_rows, row_ids, pair_ids, tlo, thi):
+    """The staged M2's walk in PyTorch (same arguments and result as
+    rows_adc): each tile stages its runs' tables into a model of its shared
+    memory by rows_adc_layout, and each code looks its bytes up in its run's
+    slot, summed in rows_adc's order. It holds the kernel's index arithmetic
+    to rows_adc_plain where no card is."""
+    cb = tlo.shape[1] // 16
+    cpr = 128 // cb
+    a, t = row_ids.shape[0], ROWS_ADC_TILE
+    dev = codes_rows.device
+    if a == 0:
+        return torch.empty((0, cpr), dtype=torch.float32, device=dev)
+    hi_off, slot_words = rows_adc_layout(cb)
+    starts, slot = rows_adc_runs(pair_ids)
+    tiles = starts.shape[0]
+    smem = torch.zeros((tiles, t * slot_words), dtype=torch.float32, device=dev)
+    tile_of, pos = torch.nonzero(starts, as_tuple=True)            # run starts
+    p = pair_ids.long()[tile_of * t + pos]
+    u = slot[tile_of, pos]
+    lane = torch.arange(16 * cb, device=dev)                        # the global j*cb + b
+    word = rows_adc_word(lane % cb, lane // cb)
+    for off, tab in ((0, tlo), (hi_off, thi)):
+        smem[tile_of[:, None], u[:, None] * slot_words + off + word[None, :]] = tab[p]
+    e = torch.arange(a, device=dev)
+    base = (e // t) * (t * slot_words) + slot.reshape(-1)[:a] * slot_words  # the row's slot
+    byte = codes_rows[row_ids.long()].reshape(a, cpr, cb).long()           # (A, cpr, cb)
+    flat = smem.reshape(-1)
+    acc = torch.zeros((a, cpr), dtype=torch.float32, device=dev)
+    for bb in range(cb):
+        acc = acc + flat[base[:, None] + rows_adc_word(bb, byte[..., bb] & 15)]
+        acc = acc + flat[base[:, None] + hi_off + rows_adc_word(bb, byte[..., bb] >> 4)]
+    return acc
 
 
 # ---------------------------------------------------------------- M3

@@ -266,7 +266,7 @@ def selector_sum(x, cb: int):
         raise ValueError(f"need (rows, 128) values and cb in (8, 16), got {tuple(x.shape)}, {cb}")
     if dev.type == "cpu":
         return selector_sum_plain(x, cb)
-    _require_cuda(dev)
+    _require_cuda(dev, x)
     out = torch.empty((x.shape[0], 128 // cb), dtype=torch.float32, device=dev)
     if x.shape[0]:
         _launch("qadc_selector_sum", dev, x.data_ptr(), out.data_ptr(), x.shape[0], cb)

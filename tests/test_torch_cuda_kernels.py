@@ -10,7 +10,9 @@ flat_scan_window and flat_scan_window_regs with
 int8 tables (int32 sums) bit-exact; the float scans (M1, flat_scan and
 flat_scan_window with float tables, grouped_scan8, flat_scan8), M2 and M3
 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
-kernels' order, but the card may contract or round differently. MASK_BIG
+kernels' order, but the card may contract or round differently; the staged
+M2 is also held bit for bit to its plain version and to the arm it replaced
+(one sum order, adds only). MASK_BIG
 placement, trim sentinels and dead windows exact; argmin indices equal
 (flat scans: wherever the minima are equal bit for bit).
 """
@@ -26,6 +28,7 @@ from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.kernels import lut_scan, scan_lab
 from test_torch_grouped_slot_minor import LIVE_COUNTS, groups_with_live_counts, scatter_slots
+from test_torch_rows_adc_tiles import ID_CASES, id_list_inputs
 
 
 @pytest.fixture
@@ -102,6 +105,62 @@ def test_rows_adc_matches_plain(cuda, cb):
     want = lut_scan.rows_adc_plain(*args)
     got = lut_scan.rows_adc(*[a.to(cuda) for a in args])
     _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("name,a", ID_CASES)
+def test_rows_adc_equals_plain_and_arm(cuda, name, a, cb):
+    """The staged M2 (csrc/rows_adc.cu:rows_adc_kernel) at the id lists of its
+    cases, bit for bit its plain version, its walk and the replaced kernel."""
+    args = id_list_inputs(name, a, cb)
+    want = lut_scan.rows_adc_plain(*args)
+    dev = [t.to(cuda) for t in args]
+    torch.cuda.synchronize()
+    before = dict(lut_scan.launches)
+    got = lut_scan.rows_adc(*dev)
+    arm = lut_scan.rows_adc_cached(*dev)
+    torch.cuda.synchronize()
+    for key in ("rows_adc", "rows_adc_cached"):
+        assert lut_scan.launches[key] == before[key] + (1 if a else 0)
+    assert got.shape == (a, 128 // cb)
+    assert torch.equal(got.cpu(), want) and torch.equal(arm, got)
+    assert torch.equal(lut_scan.rows_adc_staged_plain(*dev), got)
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("kind", ["flat_keep_prefix", "screen_order"])
+def test_rows_adc_at_search_sizes(cuda, cb, kind):
+    """Many tiles: the flat keep-prefix's lists (the same rows for every
+    query, a pair a query: runs of 625 cut by tiles) and a rerank's (a pair
+    a row from 3,072, rows all over the storage)."""
+    g = np.random.default_rng(40 + cb)
+    codes = torch.from_numpy(g.integers(0, 256, (20_000, 128), dtype=np.uint8)).to(cuda)
+    qa = 3072
+    tlo = torch.from_numpy(g.normal(size=(qa, 16 * cb)).astype(np.float32)).to(cuda)
+    thi = torch.from_numpy(g.normal(size=(qa, 16 * cb)).astype(np.float32)).to(cuda)
+    if kind == "flat_keep_prefix":
+        rows = torch.arange(625, dtype=torch.int32, device=cuda).repeat(128)
+        pairs = torch.arange(128, dtype=torch.int32, device=cuda).repeat_interleave(625)
+    else:
+        rows = torch.from_numpy(g.integers(0, 20_000, 12_800).astype(np.int32)).to(cuda)
+        pairs = torch.from_numpy(g.integers(0, qa, 12_800).astype(np.int32)).to(cuda)
+    args = (codes, rows, pairs, tlo, thi)
+    got = lut_scan.rows_adc(*args)
+    assert torch.equal(got, lut_scan.rows_adc_plain(*args))
+    assert torch.equal(got, lut_scan.rows_adc_cached(*args))
+
+
+def test_searches_launch_only_the_staged_rows_adc(cuda):
+    arrays, meta = bench_ivf_arrays(np.random.default_rng(0), parts=16)
+    index = ivf_index_from_arrays(arrays, meta, cuda)
+    queries = np.random.default_rng(1).normal(size=(32, 128)).astype(np.float32)
+    torch.cuda.synchronize()
+    before = dict(lut_scan.launches)
+    ivf.search_qadc(index, queries, r=50, ma=4, keep=0.005, direct=False, grouped=True)
+    ivf.search_adc(index, queries, r=50, ma=4)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["rows_adc"] == before["rows_adc"] + 3
+    assert lut_scan.launches["rows_adc_cached"] == before["rows_adc_cached"]
 
 
 @pytest.mark.parametrize("cb", [8, 16])
@@ -436,6 +495,17 @@ def test_selector_sum_holds_float64(cuda, cb):
     got = scan_lab.selector_sum(x.to(cuda), cb).cpu().double()
     assert lut_scan.launches["selector_sum"] == before + 1
     want = x.double().reshape(512, 128 // cb, cb).sum(-1)
+    assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("rows", [1, 7, 512, 513])
+def test_selector_sum_rows_hold_float64(cuda, rows, cb):
+    """A warp a row, four rows a block: row counts off the block's multiple."""
+    x = torch.from_numpy(np.random.default_rng(rows).uniform(0, 500, (rows, 128)).astype(np.float32))
+    got = scan_lab.selector_sum(x.to(cuda), cb).cpu().double()
+    assert got.shape == (rows, 128 // cb)
+    want = x.double().reshape(rows, 128 // cb, cb).sum(-1)
     assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
 
 

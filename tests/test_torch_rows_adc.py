@@ -4,6 +4,12 @@ rows and tables, and the wrapper's argument checks.
 
 Tolerance: rtol 1e-6, atol 1e-5 * max|ref|: float32 sums of 16 terms taken
 in another order than the reference's lane sums and HIGHEST matmul.
+
+The id lists of the staged kernel's cases (test_torch_rows_adc_tiles.ID_LISTS:
+one pair for every row, runs a tile boundary cuts, every pair distinct,
+pairs descending, repeated row ids, A = 1 and A = 0) go through both
+packages too; at A = 0 the reference's kernel takes no input, and the port
+returns (0, cpr).
 """
 
 import jax.numpy as jnp
@@ -13,6 +19,7 @@ import torch
 
 from qadc_tpu.index import ivf as jivf
 from qadc_tpu_torch.kernels import lut_scan
+from test_torch_rows_adc_tiles import ID_CASES, id_list_inputs
 
 
 def _inputs(cb, a, seed=0):
@@ -34,6 +41,21 @@ def test_rows_adc_matches_reference(cb, a):
     got = lut_scan.rows_adc_plain(*map(torch.from_numpy, (codes, row_ids, pair_ids, tlo, thi)))
     assert got.shape == (a, 128 // cb) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("name,a", ID_CASES)
+def test_rows_adc_id_lists_match_reference(name, a, cb):
+    codes, row_ids, pair_ids, tlo, thi = id_list_inputs(name, a, cb)
+    got = lut_scan.rows_adc_plain(codes, row_ids, pair_ids, tlo, thi)
+    assert got.shape == (a, 128 // cb) and got.dtype == torch.float32
+    if a == 0:
+        return
+    r, p = row_ids.long(), pair_ids.long()
+    want = np.asarray(jivf.rows_adc(jnp.asarray(codes[r].numpy()), jnp.asarray(tlo[p].numpy()),
+                                    jnp.asarray(thi[p].numpy()), cb, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5 * np.abs(want).max())
+    assert torch.equal(lut_scan.rows_adc(codes, row_ids, pair_ids, tlo, thi), got)
 
 
 def test_rows_adc_dispatches_to_plain_on_cpu():

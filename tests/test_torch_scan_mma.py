@@ -325,6 +325,17 @@ def test_selector_sum_plain_holds_float64(cb):
     assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
 
 
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("rows", [1, 7, 513])
+def test_selector_sum_plain_holds_float64_at_any_rows(rows, cb):
+    """Row counts that are not a multiple of the kernel's four rows a block."""
+    x = torch.from_numpy(np.random.default_rng(rows).uniform(0, 500, (rows, 128)).astype(np.float32))
+    got = scan_lab.selector_sum(x, cb).double()
+    assert got.shape == (rows, 128 // cb)
+    want = x.double().reshape(rows, 128 // cb, cb).sum(-1)
+    assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
+
+
 def test_lookup_entries_are_the_plain_versions_on_cpu():
     codes, tables = _inputs(16, 5, 12, 4)
     n = 100
