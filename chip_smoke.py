@@ -21,7 +21,11 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      equal bit for bit, at the id lists that IVF qadc b=128 and b=32, flat
      qadc b=128 and adc4 b=32 hand it (each launch's keep-prefix and rerank
      lists, recorded through a Kernels whose rows_adc keeps its arguments)
-     and at random rerank ids; M3 at b=1's 24 pairs; M1
+     and at random rerank ids; M3 by its chunked kernel and by the arm it
+     replaced (direct_scan_blocks), equal bit for bit, at the pairs direct
+     searches hand it (b=1, and b=32 and 128 forced direct; after phase 7
+     the same on the CLI's trained index, part_pad 12,288), and at fixed
+     rounds a block 1 / 2 / 4 in turns (the M3 rounds sweep); M1
      with float tables and grouped_scan8 on the 16x4 and 8x8 indexes, by
      their slot-minor kernels and by the kernels they replaced (the _lookup
      arms, timed beside them), at search_adc's routed groups of 32 and 128
@@ -40,7 +44,7 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
   2. search phases, each with the launch counts reset just before and read
      just after, and every kernel of its path required to have launched:
      ivf.search_qadc at b=1 (direct path), b=32 and b=128 (grouped path),
-     r=100, ma=24, keep=0.005; ivf.search_adc at b=32, r=100, ma=24 on the
+     r=100, ma=24, keep=0.005, and at b=32 and 128 forced direct; ivf.search_adc at b=32, r=100, ma=24 on the
      4-, 8- and 16-bit indexes; flat.search_qadc (keep=0.01) and
      flat.search_adc 4-bit at b=128, flat.search_adc 8- and 16-bit at b=32,
      r=100. Each result is held against the same search through the plain
@@ -62,13 +66,18 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      8x8 search_adc ma=24, IVF 16x4 search_qadc ma=24 with and without
      rerank, each held to a floor (the JAX package's record less 0.035);
   5. the window scans over the trained flat 16x4 codes at b=128:
-     flat_scan_window against its plain version at (block 1024, W 16)
-     min-only, transposed, with argmin ids and with float tables, and at
-     (block 512, W 8); flat_scan_window_regs against flat_scan_window, exact;
-     lut_scan_topk_int8 r=100 against the exact scan; the same over a 32x4
-     index (W 16 != cpr 8), and the four scans' device times side by side;
+     flat_scan_window with int8 tables (the warpgroup kernel) and the
+     lookup kernel it replaced (flat_scan_window_lookup), in turns, held to
+     each other, to the plain version and to their tile walk bit for bit,
+     and to flat_scan at W = cpr, at (block 1024, W 16) min-only,
+     transposed and with argmin ids (also at b=32: a partial group of
+     queries), and at (block 512, W 8); with float
+     tables (the lookup kernel); flat_scan_window_regs against
+     flat_scan_window, exact; lut_scan_topk_int8 r=100 against the exact
+     scan and the screen of the arm's windows; the same over a 32x4 index
+     (W 16 != cpr 8), and the scans' device times side by side;
   6. the scan lab (qadc_tpu_torch/kernels/scan_lab.py) over the same trained
-     codes at b=128: the four engines of one scan equal bit for bit, every
+     codes at b=128: the five engines of one scan equal bit for bit, every
      lab mode launched and timed, the exactness probe (0 mismatches
      required) and the float32 selector sum against float64 (1e-6); the
      query-minor scans at every chunk of queries and with parts removed, and
@@ -164,19 +173,23 @@ PATH_KERNELS = {
     "engine": ("grouped_scan", "rows_adc"),
     "serve": ("grouped_scan", "rows_adc", "direct_scan"),
     "crossover": ("grouped_scan", "rows_adc", "direct_scan"),
+    "qadc_direct": ("direct_scan",),
     "autotune": ("grouped_scan", "rows_adc"),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
-                 "flat_scan_window", "flat_scan_window_regs", "flat_scan_f32_lookup",
+                 "flat_scan_window", "flat_scan_window_lookup", "flat_scan_window_regs",
+                 "flat_scan_f32_lookup",
                  "flat_scan8_lookup", "empty_kernel"),
 }
 # The replaced kernels are A/B instruments: no search path may launch them.
 LOOKUP_ONLY = ("grouped_scan_lookup", "grouped_scan_f32_lookup", "grouped_scan8_lookup",
-               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup", "rows_adc_cached")
+               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup", "rows_adc_cached",
+               "direct_scan_blocks", "flat_scan_window_lookup")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
            "grouped_scan_f32_lookup": "adc4", "grouped_scan8_lookup": "adc8",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
            "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
+           "flat_scan_window_f32": "window_scan", "flat_scan_window_lookup": "window_scan",
            "flat_scan_lookup": "flat_qadc", "flat_scan_f32_lookup": "flat_adc4",
            "flat_scan8_lookup": "flat_adc8", "scan_lab": "scan_lab", "selector_sum": "scan_lab",
            "empty_kernel": "scan_lab"}
@@ -197,6 +210,7 @@ CLI_CHUNK = 262_144                      # add's --chunk-size
 SERVE_REQUESTS, SERVE_THREADS, SERVE_BATCH, SERVE_WAIT_MS = 2000, 8, 128, 2.0
 SERVE_RTOL = 1e-6
 CROSSOVER_BATCHES, CROSSOVER_REPS = (1, 2, 4, 8, 16, 32, 64, 128), 30
+M3_ROUNDS = (1, 2, 4)    # rounds a direct_scan block, fixed in turns at each M3 shape
 # CUDA kernels torch.profiler must see launched by each workflow phase.
 PROFILED_KERNELS = {
     "cli_ivf_qadc": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
@@ -335,6 +349,7 @@ def main() -> int:
     from qadc_tpu_torch.kernels import build, lut_scan, scan_lab
     from qadc_tpu_torch.kernels.scan_ref import adc_scan_int8, scan_topk_int8
     from qadc_tpu_torch.ops.knn import assign_nearest
+    from qadc_tpu_torch.ops.topk import exact_tile_screen
     from qadc_tpu_torch.quantizers.opq import train_opq
     from qadc_tpu_torch.quantizers.pq import train_pq
 
@@ -452,27 +467,80 @@ def main() -> int:
                          lambda args=args: lut_scan.grouped_scan_plain(*args), exact_int,
                          *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
 
-    rpp = index.codes.shape[1]
-    p1, rot1 = ivf.assign_queries(index, queries[1], MA)
-    t1lo, t1hi = ivf.tile_tables_rows(
-        ivf.adc_tables(rot1, index.pq.centroids).reshape(MA, 16, 16))
-    pflat = p1.reshape(MA)
-    m3_args = (index.codes, pflat, t1lo, t1hi, index.part_sizes[pflat.long()])
+    # M3 at the pairs the direct path hands it (a Kernels whose direct_scan
+    # keeps its arguments): b=1, and b=32 and 128 forced direct, by the
+    # chunked kernel and by the arm it replaced (direct_scan_blocks) in turns.
+    def recorded_m3(ix, qs):
+        calls = []
 
-    def direct_err(got, want):
+        def direct_scan(*args):
+            calls.append(args)
+            return lut_scan.direct_scan(*args)
+
+        ivf.search_qadc(ix, qs, r=R, ma=MA, keep=KEEP, direct=True,
+                        kernels=lut_scan.DISPATCH._replace(direct_scan=direct_scan))
+        torch.cuda.synchronize()
+        check(len(calls) == 1, f"{len(calls)} direct_scan launches in one direct search")
+        return calls[0]
+
+    def direct_exact(got, want):
         (gd, gm), (wd, wm) = got, want
-        big = wd == lut_scan.MASK_BIG
-        check(torch.equal(gd == lut_scan.MASK_BIG, big), "direct_scan MASK_BIG placement")
-        err = float_err(torch, torch.where(big, 0.0, gd), torch.where(big, 0.0, wd),
-                        "direct_scan distances")
-        return max(err, float_err(torch, gm, wm, "direct_scan tile minima"))
+        check(torch.equal(gd == lut_scan.MASK_BIG, wd == lut_scan.MASK_BIG),
+              "direct_scan MASK_BIG placement")
+        check(torch.equal(gd, wd) and torch.equal(gm, wm),
+              "direct_scan distances or tile minima differ from the plain version")
+        return 0.0
 
-    kernel_phase("direct_scan", "direct_scan_kernel", "qadc_tpu_torch/csrc/rows_adc.cu",
-                 "qadc_tpu/kernels/lut_scan.py:1206",
-                 lambda: lut_scan.direct_scan(*m3_args),
-                 lambda: lut_scan.direct_scan_plain(*m3_args), direct_err,
-                 torch.unique(pflat).numel() * rpp * 128 + nbytes(*m3_args[1:]),
-                 int(m3_args[4].sum()) * index.pq.sq_count, PEAK_F32)
+    m3_src = "qadc_tpu_torch/csrc/rows_adc.cu"
+
+    def m3_phases(ix, tag, m3_args, path):
+        """M3 at one shape: the chunked kernel equal to the arm bit for bit,
+        then both timed beside the plain version and the bound (each probed
+        partition's codes read once, tables, ids and sizes; distances and
+        minima written once)."""
+        got, arm = lut_scan.direct_scan(*m3_args), lut_scan.direct_scan_blocks(*m3_args)
+        check(torch.equal(got[0], arm[0]) and torch.equal(got[1], arm[1]),
+              f"direct_scan[{tag}] differs from its arm")
+        del got
+        pp = m3_args[1]
+        moved = torch.unique(pp).numel() * ix.codes.shape[1] * 128 + nbytes(*m3_args[1:])
+        rounds = lut_scan.direct_scan_rounds(pp.shape[0], ix.part_pad,
+                                             torch.cuda.get_device_properties(device)
+                                             .multi_processor_count)
+        print(f"direct_scan [{tag}]: {pp.shape[0]} pairs x part_pad {ix.part_pad}, "
+              f"{torch.unique(pp).numel()} partitions, {rounds} rounds a block", flush=True)
+        for base, fn, cu_name in (("direct_scan", lut_scan.direct_scan, "direct_scan_kernel"),
+                                  ("direct_scan_blocks", lut_scan.direct_scan_blocks,
+                                   "direct_scan_blocks_kernel")):
+            kernel_phase(base if tag == "b=1" else f"{base}[{tag}]", cu_name, m3_src,
+                         "qadc_tpu/kernels/lut_scan.py:1206",
+                         lambda fn=fn: fn(*m3_args),
+                         lambda: lut_scan.direct_scan_plain(*m3_args), direct_exact,
+                         moved, int(m3_args[4].sum()) * ix.pq.sq_count, PEAK_F32, path=path)
+        # The rounds a block fixed at each of M3_ROUNDS in turns, twice (the
+        # readings behind lut_scan.direct_scan_rounds), each equal to the arm.
+        rule, sweep = lut_scan.direct_scan_rounds, {r: [] for r in M3_ROUNDS}
+        try:
+            for _ in range(2):
+                for r in M3_ROUNDS:
+                    lut_scan.direct_scan_rounds = lambda qa, part_pad, sms, r=r: r
+                    got = lut_scan.direct_scan(*m3_args)
+                    check(torch.equal(got[0], arm[0]) and torch.equal(got[1], arm[1]),
+                          f"direct_scan[{tag}] at {r} rounds differs from its arm")
+                    sweep[r].append(device_ms(torch, lambda: lut_scan.direct_scan(*m3_args),
+                                              "direct_scan_kernel"))
+        finally:
+            lut_scan.direct_scan_rounds = rule
+        del got, arm
+        m3_rounds[tag] = {"rule": rounds, **sweep}
+        print(f"direct_scan [{tag}] device ms at fixed rounds, two turns: " + "; ".join(
+            f"{r}: {v[0]:.5f} / {v[1]:.5f}" for r, v in sweep.items())
+            + f" (the rule picks {rounds}) [{card}]", flush=True)
+
+    m3_rounds = {}
+    for b in BATCHES:
+        m3_phases(index, f"b={b}", recorded_m3(index, queries[b]),
+                  "qadc" if b == 1 else "qadc_direct")
 
     # search_adc's kernels at its b=32 groups: M1 with float tables on the
     # 16x4 index, grouped_scan8 with bf16 tables on the 8x8 index.
@@ -792,6 +860,22 @@ def main() -> int:
             check(path == "scan_lab" or launches[path][name] == 0, f"{path} launched {name}")
         return out
 
+    # The direct path forced at b=32 and 128 on the bench index, M3's larger
+    # shapes: exact float ADC, so each top-r is the oracle's.
+    forced = drive("qadc_direct", lambda: {
+        b: ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP, direct=True)
+        for b in BATCHES[1:]})
+    check(launches["qadc_direct"]["direct_scan"] == len(forced)
+          and launches["qadc_direct"]["grouped_scan"] == 0, "qadc_direct: M3 launches")
+    for b, (d, _) in forced.items():
+        od, _ = oracle(torch, index, queries[b], code_view, unpack_codes, ivf)
+        check(d.shape == (b, R), f"qadc_direct b={b}: result shape")
+        torch.testing.assert_close(d.double(), od, rtol=SEARCH_RTOL, atol=0.0,
+                                   msg=lambda m: f"qadc_direct b={b}: direct vs oracle: {m}")
+        print(f"search qadc_direct b={b}: vs oracle max_abs_err="
+              f"{float((d.double() - od).abs().max()):.3g}", flush=True)
+    del forced
+
     def check_vs_plain(path, b, got, plain):
         (d, lab), (pd, pl) = got, plain
         check(d.shape == (b, R) and lab.shape == (b, R), f"{path}: shape")
@@ -991,9 +1075,22 @@ def main() -> int:
         check(recalls[name] >= floor, f"recall {name} = {recalls[name]} below {floor}")
 
     # ---- 7. the workflow: files, CLI, engine, server, autotune ---------------
-    workflow_phases(torch, np, device, card, base_np, cli_q_np, drive,
-                    Path(workdir.name) / "workflow")
+    cli_index = workflow_phases(torch, np, device, card, base_np, cli_q_np, drive,
+                                Path(workdir.name) / "workflow")
     del base_np
+    # M3 at the CLI's trained IVF-256 (part_pad 12,288), at the batches its
+    # crossover phase sends down the direct path.
+    for b in BATCHES:
+        m3_phases(cli_index, f"cli b={b}",
+                  recorded_m3(cli_index, torch.from_numpy(cli_q_np[:b]).to(device)), "crossover")
+    m3_ab = {k[len("direct_scan"):]: (v["ms"], kernels["direct_scan_blocks" + k[len("direct_scan"):]]["ms"])
+             for k, v in kernels.items() if k.split("[")[0] == "direct_scan"}
+    print("M3 A/B, device ms chunked / arm: " + "; ".join(
+        f"{k or '[b=1]'} {new:.5f} / {arm:.5f}" for k, (new, arm) in m3_ab.items()) + f" [{card}]",
+        flush=True)
+    print("M3 rounds sweep, device ms (two turns): " + json.dumps(m3_rounds) + f" [{card}]",
+          flush=True)
+    del cli_index
 
     # ---- 5. the window scans over the trained flat 16x4 and 32x4 codes -------
     fw, fw32 = trained["flat_16x4"], trained["flat_32x4"]
@@ -1013,21 +1110,54 @@ def main() -> int:
     def window_f32(got, want):
         return inf_float_err(torch, got[0], want[0], "flat_scan_window float minima")
 
+    # The int8 window scan on the tensor cores (the warpgroup kernel, at
+    # b=128 and at b=32, where a group of 128 queries is partly masked) and
+    # the lookup kernel it replaced (flat_scan_window_lookup) in turns,
+    # held to each other, to the plain version and to the tile walk bit for
+    # bit; at W = cpr also to flat_scan. Float tables stay on the lookup kernel.
     window_src = "qadc_tpu_torch/csrc/flat_scan_window.cu"
-    for tag, ix, tab, bn, w, kw, compare, replaces in (
-        ("b1024 w16", fw, wqt, 1024, 16, {}, window_exact, 281),
-        ("b1024 w16 transposed", fw, wqt, 1024, 16, {"transpose_out": True}, window_exact, 281),
-        ("b1024 w16 with_rows", fw, wqt, 1024, 16, {"with_rows": True}, window_exact, 281),
-        ("b1024 w16 f32", fw, wft, 1024, 16, {}, window_f32, 281),
-        ("b512 w8", fw, wqt, 512, 8, {}, window_exact, 281),
-        ("32x4 b1024 w16 with_rows", fw32, wqt32, 1024, 16, {"with_rows": True},
-         window_exact, 1991),
+    for tag, ix, tab, bn, w, kw, replaces in (
+        ("b1024 w16", fw, wqt, 1024, 16, {}, 281),
+        ("b1024 w16 transposed", fw, wqt, 1024, 16, {"transpose_out": True}, 281),
+        ("b1024 w16 with_rows", fw, wqt, 1024, 16, {"with_rows": True}, 281),
+        ("b=32 b1024 w16 with_rows", fw, wqt[:32].contiguous(), 1024, 16, {"with_rows": True},
+         281),
+        ("b512 w8", fw, wqt, 512, 8, {}, 281),
+        ("32x4 b1024 w16 with_rows", fw32, wqt32, 1024, 16, {"with_rows": True}, 1991),
     ):
-        kernel_phase(f"flat_scan_window[{tag}]", "flat_scan_window_kernel", window_src,
-                     f"qadc_tpu/kernels/lut_scan.py:{replaces}",
-                     lambda: lut_scan.flat_scan_window(ix.codes, tab, ix.n, bn, w, **kw),
-                     lambda: lut_scan.flat_scan_window_plain(ix.codes, tab, ix.n, bn, w, **kw),
-                     compare, *flat_work(ix.codes, tab, ix.n))
+        args = (ix.codes, tab, ix.n, bn, w)
+        got = lut_scan.flat_scan_window(*args, **kw)
+        for what, other in (("its arm", lut_scan.flat_scan_window_lookup(*args, **kw)),
+                            ("its tile walk", lut_scan.flat_scan_window_tiles_plain(*args, **kw))):
+            check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, other)),
+                  f"flat_scan_window[{tag}] differs from {what}")
+        if w == 128 // (tab.shape[1] // 2):  # W = cpr: a window is a storage row
+            rows = lut_scan.flat_scan(ix.codes, tab, ix.n, "with_rows" in kw)
+            mins = got[0] if kw.get("transpose_out") else got[0].T
+            check(torch.equal(mins, rows[0]) and (got[1] is None or torch.equal(got[1].T, rows[1])),
+                  f"flat_scan_window[{tag}] differs from flat_scan at W = cpr")
+        del got, other
+        for base, fn, cu_name, src, reps in (
+            ("flat_scan_window", lut_scan.flat_scan_window, "flat_scan_window_wgmma_kernel",
+             "qadc_tpu_torch/csrc/scan_wgmma.cu", REPS),
+            ("flat_scan_window_lookup", lut_scan.flat_scan_window_lookup,
+             "flat_scan_window_kernel", window_src, ARM_REPS),
+        ):
+            kernel_phase(f"{base}[{tag}]", cu_name, src, f"qadc_tpu/kernels/lut_scan.py:{replaces}",
+                         lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
+                         lambda args=args, kw=kw: lut_scan.flat_scan_window_plain(*args, **kw),
+                         window_exact, *flat_work(ix.codes, tab, ix.n), reps=reps)
+    kernel_phase("flat_scan_window_f32[b1024 w16]", "flat_scan_window_kernel", window_src,
+                 "qadc_tpu/kernels/lut_scan.py:281",
+                 lambda: lut_scan.flat_scan_window(fw.codes, wft, fw.n, 1024, 16),
+                 lambda: lut_scan.flat_scan_window_plain(fw.codes, wft, fw.n, 1024, 16),
+                 window_f32, *flat_work(fw.codes, wft, fw.n), reps=ARM_REPS)
+    window_ab = {k[len("flat_scan_window"):]: (v["ms"], kernels["flat_scan_window_lookup"
+                                                                + k[len("flat_scan_window"):]]["ms"])
+                 for k, v in kernels.items() if k.split("[")[0] == "flat_scan_window"}
+    print("window A/B, device ms tensor cores / arm: " + "; ".join(
+        f"{k} {new:.4f} / {arm:.4f}" for k, (new, arm) in window_ab.items()) + f" [{card}]",
+        flush=True)
 
     def regs_exact(got, want):
         check(torch.equal(got, want), "flat_scan_window_regs differs from flat_scan_window")
@@ -1070,8 +1200,17 @@ def main() -> int:
                            regs_v.to(torch.float32)).amin(dim=0)
         check(torch.equal(wmin, tv[:, 0]), f"regs {tag}: best window differs from the top-1")
         del exact
+        # The same screen over the arm's windows: lut_scan_topk_int8's results unchanged.
+        av, ai = lut_scan.flat_scan_window_lookup(ix.codes, tab, ix.n, 1024, 16, with_rows=True)
+        av = torch.where(ai >= 0, av.to(torch.float32), torch.inf).T
+        sv, sel = exact_tile_screen(av, min(R, av.shape[1]))
+        check(torch.equal(sv, tv) and torch.equal(torch.gather(ai.T, 1, sel.long()), ti),
+              f"topk {tag}: differs from the screen of the arm's windows")
+        topk_ms = device_ms(torch, lambda: lut_scan.lut_scan_topk_int8(ix.codes, tab, R, ix.n,
+                                                                       1024, 16))
         print(f"window path {tag}: lut_scan_topk_int8 r={R} values exact, ids < n, top-1 equal "
-              f"to the exact scan; flat_scan_window_regs' best window equal", flush=True)
+              f"to the exact scan and to the arm's screen; flat_scan_window_regs' best window "
+              f"equal; device ms of the call {topk_ms:.4f} [{card}]", flush=True)
 
     # ---- 6. the scan lab over the trained flat 16x4 codes, b=128 ---------------
     # The query-minor scans' lab takes the same codes as 8x8 codes too (8 bytes a code).
@@ -1154,7 +1293,8 @@ def main() -> int:
     print(f"A/B b=128 x {fw.n_pad} trained 16x4 codes, device ms: flat_scan (int8 one-hot x "
           f"table wgmma) {ab_ms['flat_scan']:.4f}; by mma.sync "
           f"{kernels['scan_lab[full]']['ms']:.4f}; flat_scan_lookup {ab_ms['flat_scan_lookup']:.4f}; "
-          f"flat_scan_window (block 1024, W 16, transposed) {ab_ms['flat_scan_window']:.4f}; "
+          f"flat_scan_window (block 1024, W 16, transposed; wgmma) {ab_ms['flat_scan_window']:.4f}; "
+          f"flat_scan_window_lookup {ab_ms['flat_scan_window_lookup']:.4f}; "
           f"flat_scan_window_regs {ab_ms['flat_scan_window_regs']:.4f} [{card}]", flush=True)
     print(json.dumps({"scan_lab": {
         "shape": f"b={wqt.shape[0]} x {fw.n_pad} trained 16x4 codes", "ab_ms": ab_ms,
@@ -1222,7 +1362,8 @@ def workflow_phases(torch, np, device, card, base_np, queries_np, drive, work: P
       threads, every answer equal to its bucket's search;
     crossover: search_qadc forced direct / grouped at b = 1..32;
     autotune: tune_ivf_qadc at b=32, then a search that consumes the pick.
-    Prints one `workflow` JSON line with every number."""
+    Prints one `workflow` JSON line with every number; returns the CLI's IVF
+    index, loaded onto the card."""
     from qadc_tpu_torch import autotune
     from qadc_tpu_torch.cli.main import main as cli
     from qadc_tpu_torch.core.tensors import full_f32_matmul
@@ -1526,6 +1667,7 @@ def workflow_phases(torch, np, device, card, base_np, queries_np, drive, work: P
           f"gives the API's results [{card}]", flush=True)
     report["profiled_kernels"] = seen_all
     print(json.dumps({"workflow": report}, default=float), flush=True)
+    return ivf_index
 
 
 def oracle(torch, index, queries, code_view, unpack_codes, ivf):

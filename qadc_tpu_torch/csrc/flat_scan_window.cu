@@ -1,13 +1,17 @@
 // Kernels 8 (general), 8v, 8w and 10: the flat 4-bit ADC scan to window
-// minima at any (block_n, window), by two engines.
+// minima at any (block_n, window), by two lookup engines.
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_reduce in its whole
 // contract (any block_n dividing N_pad, any window dividing block_n; minima
 // only, transposed or not, or with the argmin's code id; int8 or float32
-// tables), and with it lut_scan_topk_int8, which screens its output. The
-// reduce kernel's variants "int8", "int8c" and "bf16" differ only in how the
-// TPU's matrix unit builds the one-hot pre-image of the codes; this kernel
-// builds no one-hot, so all three names run flat_scan_window_kernel.
+// tables), and with it lut_scan_topk_int8, which screens its output. With
+// float32 tables flat_scan_window_kernel is the kernel of lut_scan.
+// flat_scan_window; with int8 tables the tensor-core kernel over
+// window-major columns took its place (scan_wgmma.cu; window_columns.cuh),
+// and its int8 instantiation stays as its A/B arm,
+// lut_scan.flat_scan_window_lookup. The reduce kernel's variants "int8",
+// "int8c" and "bf16" differ only in how the TPU's matrix unit builds the
+// one-hot pre-image of the codes; all three names run the same kernels here.
 // flat_scan_window_regs_kernel replaces lut_scan_vpu_reduce: the same int8
 // minima, bit for bit, by another engine, kept as an A/B instrument.
 //
@@ -45,7 +49,7 @@
 //     broadcast), and writes to (windows, Q) are coalesced. The loops over
 //     sub-quantizers are fully unrolled, so no table register is indexed at
 //     run time.
-// Neither uses wgmma or TMA: making them fast is later work.
+// Neither uses the tensor cores or TMA.
 
 #include <climits>
 #include <cstdint>

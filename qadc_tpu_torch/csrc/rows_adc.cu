@@ -1,8 +1,9 @@
 // Kernels M2 (rows_adc; rows_adc_cached, the formulation it replaced, kept
-// as an A/B arm) and M3 (direct_scan): exact float32 ADC of 4-bit PQ codes
-// stored as 128-byte rows, each kernel with its own entry point. The arm and
-// M3 share one per-code device function (adc_code); the staged M2 sums the
-// same terms in the same order from its own layout (adc_code_staged).
+// as an A/B arm) and M3 (direct_scan; direct_scan_blocks, likewise): exact
+// float32 ADC of 4-bit PQ codes stored as 128-byte rows, each kernel with its
+// own entry point. M2's arm and both M3 kernels share one per-code device
+// function (adc_code); the staged M2 sums the same terms in the same order
+// from its own layout (adc_code_staged).
 //
 // M2 replaces qadc_tpu/kernels/lut_scan.py:rows_adc_accumulate together with
 // the selector matmul of qadc_tpu/index/ivf.py:rows_adc that reduces its
@@ -13,16 +14,15 @@
 // directly.
 //
 // M3 replaces qadc_tpu/kernels/lut_scan.py:rows_adc_grouped_prefetch as the
-// b=1 direct path calls it (compact_out, mask_sizes, tile_min=32): every
+// direct path calls it (b=1, and any batch sent or forced there) (compact_out, mask_sizes, tile_min=32): every
 // code of each probed partition is scored with its pair's table, codes at or
 // past the partition's size hold MASK_BIG, and the minima of 32-code tiles
 // are written beside the distances. The output is in code order, (QA,
 // part_pad), not the Pallas kernel's c-major transposed layout.
 //
-// What bounds them on the H100: M3 reads each probed code once (8 bytes at
-// 16x4 PQ) and writes 4 bytes of distance, so at b=1 (24 partitions, 98,304
-// codes, ~1.2 MB) it is bound by launch latency and by the lookups, not by
-// device memory. M2 moves little (its rows repeat: the flat keep-prefix
+// What bounds them on the H100: M3 reads each probed partition's codes (8
+// bytes a code at 16x4 PQ) and writes 4 bytes of distance a code and pair
+// (see its design below). M2 moves little (its rows repeat: the flat keep-prefix
 // scores the same 625 rows for every query; each table is 1 KB at CB = 8),
 // so it is bound by latency: a chain of dependent loads (ids, then codes and
 // tables) in blocks that live a few microseconds, and by its 2*CB table
@@ -53,11 +53,35 @@
 // tables read from device memory through L1, where a half-warp's 16 lookups
 // of one byte position fall on up to 4 lines (8 for a warp of two pairs).
 //
-// M3 stages its pair's two compact tables in shared memory transposed to
-// [byte][centroid], a block a pair; tile minima are a warp shuffle
-// reduction (a warp is one 32-code tile). Sums run in float32 in the order
-// b = 0..CB-1, low then high nibble, with no contraction (only adds), which
-// the plain PyTorch versions repeat: all three kernels agree bit for bit.
+// M3's design (direct_scan_kernel): a block takes an item, a pair and a
+// chunk of `rounds` x 1024 consecutive codes of its partition (the wrapper
+// picks rounds, lut_scan.direct_scan_rounds: 4 where the grid still has a
+// block an SM, else 1, as at b=1; from a sweep of fixed rounds), and stages
+// the pair's two compact tables once in shared memory, transposed to
+// [byte][centroid], so a warp's lookups at one byte position hit 16 banks
+// without conflict. A lane holds 4 consecutive codes a round (two or four
+// 16-byte loads); the first round's code loads are issued right after the
+// partition id, before the tables are stored and the barrier, and each
+// round's loads go out before the round before it is summed. A lane writes
+// its 4 distances as one 16-byte store, and a 32-code tile minimum is the
+// minimum of a lane's 4 sums and three xor-shuffles over its 8 lanes.
+// What bounds it: at b=1 (24 pairs, 4,096 codes each at the bench's 16x4
+// index) a launch and two dependent loads, a pair's partition id and then
+// its codes; at the direct path's larger batches the 4 bytes of distance it
+// writes a code and pair (151 MB at b=128 over part_pad 12,288) and its 2*CB
+// shared-memory lookups a real code. On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py) it runs at 63% of its bytes bound there and 1.65-2.34x
+// faster than the arm from b=32 on; which of the two holds it back is not
+// measured.
+//
+// direct_scan_blocks_kernel is the formulation it replaced, kept as an A/B
+// arm (lut_scan.direct_scan_blocks; no search launches it): a block of 256
+// codes a thread each, which stages its pair's tables, waits at the barrier
+// and only then loads its code; a warp's minimum is a five-step shuffle tree.
+//
+// All sums run in float32 in the order b = 0..CB-1, low then high nibble,
+// with no contraction (only adds), which the plain PyTorch versions repeat:
+// the kernels agree bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -263,16 +287,98 @@ rows_adc_cached_kernel(const uint8_t* __restrict__ codes,   // (R, 128) all stor
   out[i] = adc_code<CB, CB, 1>(w, tlo + t, thi + t);
 }
 
+// M3: codes a lane holds a round, and codes a block round.
+constexpr int kDirectCodes = 4;
+constexpr int kDirectRound = kThreads * kDirectCodes;  // 1024
+
 template <int CB>
 __global__ void __launch_bounds__(kThreads)
 direct_scan_kernel(const uint8_t* __restrict__ codes,    // (P, part_pad, CB)
                    const int32_t* __restrict__ pair_part,// (QA,)
-                   const float* __restrict__ tlo,        // (QA, 16*CB)
+                   const float* __restrict__ tlo,        // (QA, 16*CB), lane j*CB + b
                    const float* __restrict__ thi,
                    const int32_t* __restrict__ sizes,    // (QA,) real codes
                    float* __restrict__ out,              // (QA, part_pad)
                    float* __restrict__ mins,             // (QA, part_pad / 32)
-                   int part_pad) {
+                   int part_pad, int chunks, int rounds) {
+  constexpr int kTab = 16 * CB;          // entries of one table
+  constexpr int kStage = 2 * kTab / kThreads;  // table entries a thread stages: 1 / 2
+  constexpr int kVecs = CB * kDirectCodes / 16;  // 16-byte loads a lane a round: 2 / 4
+  __shared__ float s_tab[2 * kTab];      // [lo | hi], each [b][j]
+  const int pair = blockIdx.x / chunks;
+  const int chunk = blockIdx.x - pair * chunks;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // The tables (nothing stands before them), then the partition and size,
+  // then the first round's codes: all in flight before the barrier.
+  float tv[kStage];
+#pragma unroll
+  for (int u = 0; u < kStage; ++u) {
+    const int i = threadIdx.x + u * kThreads;  // i < kTab: lo, else hi
+    tv[u] = __ldg((i < kTab ? tlo : thi) + static_cast<size_t>(pair) * kTab + i % kTab);
+  }
+  const int size = min(sizes[pair], part_pad);
+  const uint4* part = reinterpret_cast<const uint4*>(
+      codes + static_cast<size_t>(pair_part[pair]) * part_pad * CB);
+  // This lane's first code in round r: base + r * kDirectRound.
+  const int base = chunk * rounds * kDirectRound + warp * 128 + lane * kDirectCodes;
+  auto load = [&](int r, uint4 (&v)[kVecs]) {
+    const int c0 = base + r * kDirectRound;
+    if (r < rounds && c0 < size) {  // codes past the size but in storage may be read
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) v[k] = __ldg(part + static_cast<size_t>(c0) * CB / 16 + k);
+    }
+  };
+  uint4 cur[kVecs], nxt[kVecs];
+  load(0, cur);
+#pragma unroll
+  for (int u = 0; u < kStage; ++u) {
+    const int i = (threadIdx.x + u * kThreads) % kTab;  // lane j*CB + b of its table
+    s_tab[(threadIdx.x + u * kThreads) / kTab * kTab + (i % CB) * 16 + i / CB] = tv[u];
+  }
+  __syncthreads();
+
+  float* row = out + static_cast<size_t>(pair) * part_pad;
+  float* row_mins = mins + static_cast<size_t>(pair) * (part_pad / 32);
+  for (int r = 0; r < rounds; ++r) {
+    load(r + 1, nxt);  // the next round's codes, on their way during this one's sums
+    const int c0 = base + r * kDirectRound;
+    if (c0 < part_pad) {  // the same for the whole warp: part_pad % 128 == 0
+      uint32_t w[4 * kVecs];  // the lane's codes, CB / 4 words each
+#pragma unroll
+      for (int k = 0; k < kVecs; ++k) {
+        w[4 * k] = cur[k].x;
+        w[4 * k + 1] = cur[k].y;
+        w[4 * k + 2] = cur[k].z;
+        w[4 * k + 3] = cur[k].w;
+      }
+      float d[kDirectCodes];
+#pragma unroll
+      for (int k = 0; k < kDirectCodes; ++k)
+        d[k] = c0 + k < size ? adc_code<CB, 1, 16>(w + k * (CB / 4), s_tab, s_tab + kTab)
+                             : kMaskBig;
+      *reinterpret_cast<float4*>(row + c0) = make_float4(d[0], d[1], d[2], d[3]);
+      float m = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // 8 lanes hold a 32-code tile
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+      if ((lane & 7) == 0) row_mins[c0 / 32] = m;
+    }
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) cur[k] = nxt[k];
+  }
+}
+
+template <int CB>
+__global__ void __launch_bounds__(kThreads)
+direct_scan_blocks_kernel(const uint8_t* __restrict__ codes,    // (P, part_pad, CB)
+                          const int32_t* __restrict__ pair_part,// (QA,)
+                          const float* __restrict__ tlo,        // (QA, 16*CB)
+                          const float* __restrict__ thi,
+                          const int32_t* __restrict__ sizes,    // (QA,) real codes
+                          float* __restrict__ out,              // (QA, part_pad)
+                          float* __restrict__ mins,             // (QA, part_pad / 32)
+                          int part_pad) {
   __shared__ float s_lo[CB * 16];  // [b][j]
   __shared__ float s_hi[CB * 16];
   const int pair = blockIdx.x;
@@ -336,9 +442,38 @@ extern "C" int qadc_rows_adc_cached(const void* codes, const void* row_ids, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// M3: rounds (>= 1) of 1024 codes a block; part_pad % 256 == 0.
 extern "C" int qadc_direct_scan(const void* codes, const void* pair_part, const void* tlo,
                                 const void* thi, const void* sizes, void* out, void* mins,
-                                int qa, int part_pad, int cb, void* stream) {
+                                int qa, int part_pad, int cb, int rounds, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (qa < 1 || rounds < 1 || part_pad < 256 || part_pad % 256 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_chunk = static_cast<long long>(rounds) * kDirectRound;
+  const int chunks = static_cast<int>((part_pad + per_chunk - 1) / per_chunk);
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(qa) * chunks);
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* pp = static_cast<const int32_t*>(pair_part);
+  const auto* lo = static_cast<const float*>(tlo);
+  const auto* hi = static_cast<const float*>(thi);
+  const auto* sz = static_cast<const int32_t*>(sizes);
+  auto* o = static_cast<float*>(out);
+  auto* m = static_cast<float*>(mins);
+  if (cb == 8)
+    direct_scan_kernel<8><<<blocks, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad, chunks,
+                                                      rounds);
+  else if (cb == 16)
+    direct_scan_kernel<16><<<blocks, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad, chunks,
+                                                       rounds);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The replaced M3 (A/B arm): the same arguments, less rounds, and result.
+extern "C" int qadc_direct_scan_blocks(const void* codes, const void* pair_part, const void* tlo,
+                                       const void* thi, const void* sizes, void* out, void* mins,
+                                       int qa, int part_pad, int cb, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid(qa, part_pad / kThreads);
   const auto* c = static_cast<const uint8_t*>(codes);
@@ -349,9 +484,9 @@ extern "C" int qadc_direct_scan(const void* codes, const void* pair_part, const 
   auto* o = static_cast<float*>(out);
   auto* m = static_cast<float*>(mins);
   if (cb == 8)
-    direct_scan_kernel<8><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
+    direct_scan_blocks_kernel<8><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
   else if (cb == 16)
-    direct_scan_kernel<16><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
+    direct_scan_blocks_kernel<16><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

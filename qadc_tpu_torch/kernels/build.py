@@ -40,8 +40,10 @@ SIGNATURES = {
     # codes, row_ids, pair_ids, tlo, thi, out, a_count, cb, stream
     "qadc_rows_adc": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "qadc_rows_adc_cached": (_P, _P, _P, _P, _P, _P, _I, _I, _P),  # as qadc_rows_adc
-    # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, stream
-    "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, rounds, stream
+    "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # as qadc_direct_scan, less rounds
+    "qadc_direct_scan_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, f32, stream
     "qadc_flat_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, tables, out_min, out_idx, n_blocks, q_count, n, m, stream
@@ -51,6 +53,9 @@ SIGNATURES = {
     "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, n_pad, q_count, n, block_n, window, cb, stream
     "qadc_flat_scan_window_regs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
+    # cb, transpose_out, stream
+    "qadc_flat_scan_window_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, stream
     "qadc_flat_scan_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qadc_flat_scan_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),  # as qadc_flat_scan_mma

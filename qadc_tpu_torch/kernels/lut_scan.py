@@ -18,7 +18,11 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          pair ids' tables staged once in shared memory
   rows_adc_cached: M2 by the kernel the staged one replaced (tables read
                          through L1), kept for the A/B
-  direct_scan   (M3)  <- rows_adc_grouped_prefetch (the b=1 direct path)
+  direct_scan   (M3)  <- rows_adc_grouped_prefetch (the direct path): items of
+                         a pair and a chunk of codes, the tables staged once
+                         an item (direct_scan_rounds)
+  direct_scan_blocks: M3 by the kernel the chunked one replaced (a block of
+                         256 codes), kept for the A/B
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
                          tables (scan_wgmma.cu from WGMMA_MIN_QUERIES
                          queries, scan_mma.cu below) or float32 (the
@@ -36,7 +40,12 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          the query-minor kernels
   flat_scan_window      (8, 8v, 8w) <- lut_scan_reduce at any (block_n,
                          window), its accumulate variants, and (through
-                         lut_scan_topk_int8) its screened top-r
+                         lut_scan_topk_int8) its screened top-r: int8
+                         tables on the warpgroup product over window-major
+                         columns (scan_wgmma.cu, at any batch), float32 on
+                         the lookup kernel of flat_scan_window.cu
+  flat_scan_window_lookup: the int8 window scan by that lookup kernel, kept
+                         for the A/B
   flat_scan_window_regs (10) <- lut_scan_vpu_reduce: the same minima by
                          another engine (tables in registers)
 
@@ -55,6 +64,7 @@ in codes, flat_scan and flat_scan8 the real code count.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -82,8 +92,7 @@ FLAT8_BLOCK, FLAT8_WINDOW = 256, 16
 DEFAULT_BLOCK_N = 1024
 DEFAULT_WINDOW = 16
 # lut_scan_reduce's accumulate variants. On the TPU they pick how the MXU
-# builds the one-hot pre-image; the Hopper kernel builds none, so all three
-# run flat_scan_window's one kernel.
+# builds the one-hot pre-image; on the H100 all three run the same kernels.
 SCAN_VARIANTS = ("int8", "int8c", "bf16")
 # Largest code block (block_n * code bytes) the window scans stage in shared
 # memory: 8192 codes of 16 bytes, the JAX package's MAX_BLOCK_N at cb = 16.
@@ -126,11 +135,16 @@ GROUPED_WINDOW_SLOTS = 4
 # kernels, grouped_scan_f32_lookup, grouped_scan8_lookup, flat_scan_f32_lookup
 # and flat_scan8_lookup the float and 8-bit scans by the kernels the
 # slot-minor and query-minor ones replaced, rows_adc_cached M2 by the kernel
-# the staged one replaced, scan_lab, selector_sum and empty_kernel the
+# the staged one replaced, direct_scan_blocks M3 by the kernel the chunked
+# one replaced, flat_scan_window_f32 the window scan with float tables,
+# flat_scan_window_lookup its int8 scan by the kernel the tensor-core ones
+# replaced, scan_lab, selector_sum and empty_kernel the
 # instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
-            "rows_adc": 0, "rows_adc_cached": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
-            "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_regs": 0,
+            "rows_adc": 0, "rows_adc_cached": 0, "direct_scan": 0, "direct_scan_blocks": 0,
+            "flat_scan": 0, "flat_scan_f32": 0,
+            "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_f32": 0,
+            "flat_scan_window_lookup": 0, "flat_scan_window_regs": 0,
             "grouped_scan_lookup": 0, "grouped_scan_f32_lookup": 0,
             "grouped_scan8_lookup": 0, "flat_scan_lookup": 0,
             "flat_scan_f32_lookup": 0, "flat_scan8_lookup": 0, "scan_lab": 0,
@@ -698,6 +712,23 @@ def rows_adc_staged_plain(codes_rows, row_ids, pair_ids, tlo, thi):
 # ---------------------------------------------------------------- M3
 
 
+# Codes one round of a direct_scan block covers (256 threads, 4 codes a
+# lane), and the most rounds a block takes (direct_scan_rounds).
+DIRECT_ROUND, DIRECT_MAX_ROUNDS = 1024, 4
+
+
+def direct_scan_rounds(qa: int, part_pad: int, sms: int) -> int:
+    """Rounds of DIRECT_ROUND codes a block of direct_scan takes: up to
+    DIRECT_MAX_ROUNDS (a pair's rounds at most) where the grid then still has
+    a block for each of the `sms` SMs, else 1, as at b=1, where the kernel is
+    a chain of loads and more, smaller blocks spread it over the card. From
+    chip_smoke.py's sweep of fixed rounds at the direct path's six shapes
+    (PERF.md): 1 is fastest at both b=1 shapes, 4 from b=32 on."""
+    per_pair = -(-part_pad // DIRECT_ROUND)
+    rounds = min(DIRECT_MAX_ROUNDS, per_pair)
+    return rounds if qa * -(-per_pair // rounds) >= sms else 1
+
+
 def direct_scan(codes, pair_part, tlo, thi, sizes):
     """Exact float ADC of every code of each probed partition.
 
@@ -712,6 +743,23 @@ def direct_scan(codes, pair_part, tlo, thi, sizes):
       (dists (QA, part_pad) float32 in code order, MASK_BIG at or past the
       size; mins (QA, part_pad / TILE) float32 minima of TILE-code tiles).
     """
+    if _check_direct_scan(codes, pair_part, tlo, thi, sizes):
+        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
+    return _launch_direct_scan(codes, pair_part, tlo, thi, sizes, "direct_scan")
+
+
+def direct_scan_blocks(codes, pair_part, tlo, thi, sizes):
+    """direct_scan's result by the kernel the chunked one replaced (a block
+    of 256 codes, its pair's tables staged in every block): the same
+    arguments and result, bit for bit. An A/B instrument: no search path
+    calls it."""
+    if _check_direct_scan(codes, pair_part, tlo, thi, sizes):
+        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
+    return _launch_direct_scan(codes, pair_part, tlo, thi, sizes, "direct_scan_blocks")
+
+
+def _check_direct_scan(codes, pair_part, tlo, thi, sizes) -> bool:
+    """Argument checks of M3. Returns whether the tensors lie on the CPU."""
     dev = codes.device
     _check(codes, "codes", torch.uint8, 3, dev)
     _check(pair_part, "pair_part", torch.int32, 1, dev)
@@ -726,16 +774,37 @@ def direct_scan(codes, pair_part, tlo, thi, sizes):
                          f"got {tuple(codes.shape)}")
     if thi.shape != tlo.shape or tlo.shape[0] != qa or sizes.shape[0] != qa:
         raise ValueError("pair_part, tlo, thi and sizes disagree on QA")
-    if dev.type == "cpu":
-        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
+    return dev.type == "cpu"
+
+
+def _launch_direct_scan(codes, pair_part, tlo, thi, sizes, kernel: str):
+    """Launch M3 on checked CUDA tensors; `kernel` is its key in `launches`."""
+    dev = codes.device
     _require_cuda(dev, codes)
+    cb = tlo.shape[1] // 16
+    part_pad = codes.shape[1] * (128 // cb)
+    qa = pair_part.shape[0]
     out = torch.empty((qa, part_pad), dtype=torch.float32, device=dev)
     mins = torch.empty((qa, part_pad // TILE), dtype=torch.float32, device=dev)
-    if qa:
+    if qa and part_pad:
         ptrs = [t.data_ptr() for t in (codes, pair_part, tlo, thi, sizes, out, mins)]
-        _launch("qadc_direct_scan", dev, *ptrs, qa, part_pad, cb)
-        launches["direct_scan"] += 1
+        if kernel == "direct_scan":
+            rounds = direct_scan_rounds(qa, part_pad, _sm_count(dev))
+            _launch("qadc_direct_scan", dev, *ptrs, qa, part_pad, cb, rounds)
+        else:
+            _launch("qadc_direct_scan_blocks", dev, *ptrs, qa, part_pad, cb)
+        launches[kernel] += 1
     return out, mins
+
+
+def _sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count_of(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def direct_scan_plain(codes, pair_part, tlo, thi, sizes):
@@ -747,6 +816,59 @@ def direct_scan_plain(codes, pair_part, tlo, thi, sizes):
     col = torch.arange(part_pad, device=codes.device)
     d = torch.where(col[None, :] < sizes[:, None], d, MASK_BIG)
     return d, d.reshape(qa, part_pad // TILE, TILE).amin(dim=-1)
+
+
+def direct_scan_items_plain(codes, pair_part, tlo, thi, sizes, rounds: int):
+    """direct_scan's walk in PyTorch (same arguments and result as
+    direct_scan_plain, bit for bit), at `rounds` rounds a block.
+
+    Block i is item (pair i // chunks, chunk i % chunks) of rounds *
+    DIRECT_ROUND codes; it stages its pair's tables transposed to [byte]
+    [centroid] (entry j*cb + b of a table to word b*16 + j). Lane l of warp w
+    takes codes chunk*rounds*1024 + r*1024 + w*128 + 4l .. +3 in round r,
+    sums each in rows_adc's order from the staged words, writes MASK_BIG at
+    or past the size, and the 8 lanes of a 32-code tile give its minimum.
+    Every code of every pair must be written exactly once: the walk starts
+    from NaN and fails if any is left. Used by the tests, by no search path.
+    """
+    cb = tlo.shape[1] // 16
+    cpr = 128 // cb
+    qa = pair_part.shape[0]
+    part_pad = codes.shape[1] * cpr
+    dev = codes.device
+    chunks = -(-part_pad // (rounds * DIRECT_ROUND))
+    item = torch.arange(qa * chunks, device=dev)
+    pair, chunk = item // chunks, item % chunks
+    # The staged words: smem[pair, tab * 16cb + b * 16 + j] = table[tab][j * cb + b].
+    i = torch.arange(2 * 16 * cb, device=dev)
+    tab, k = i // (16 * cb), i % (16 * cb)
+    word = tab * 16 * cb + (k % cb) * 16 + k // cb
+    smem = torch.empty((qa, 2 * 16 * cb), dtype=torch.float32, device=dev)
+    smem[:, word] = torch.cat([tlo, thi], dim=1)[:, i]
+    # Code of (item, round, warp, lane, k): (items, rounds, 8, 32, 4).
+    r = torch.arange(rounds, device=dev)[:, None, None, None]
+    w = torch.arange(8, device=dev)[:, None, None]
+    lane = torch.arange(32, device=dev)[:, None]
+    kk = torch.arange(4, device=dev)
+    code = (chunk[:, None, None, None, None] * rounds * DIRECT_ROUND + r * DIRECT_ROUND
+            + w * 128 + lane * 4 + kk)
+    pair_of = pair[:, None, None, None, None].expand_as(code)
+    keep = code < part_pad
+    code, pair_of = code[keep], pair_of[keep]                      # every (pair, code) once
+    byte = code_view(codes, cb)[pair_part.long()[pair_of], code].long()  # (N, cb)
+    words = smem[pair_of]
+    acc = torch.zeros(code.shape, dtype=torch.float32, device=dev)
+    for b in range(cb):
+        acc = acc + torch.gather(words, 1, (b * 16 + (byte[:, b] & 15))[:, None])[:, 0]
+        acc = acc + torch.gather(words, 1, (16 * cb + b * 16 + (byte[:, b] >> 4))[:, None])[:, 0]
+    d = torch.where(code < sizes[pair_of], acc, MASK_BIG)
+    out = torch.full((qa, part_pad), torch.nan, dtype=torch.float32, device=dev)
+    out[pair_of, code] = d
+    if torch.isnan(out).any() or (pair_of * part_pad + code).unique().numel() != code.numel():
+        raise AssertionError("direct_scan's walk does not write every code exactly once")
+    # A tile's 8 lanes: 4 sums each, then the three xor-shuffles (any order: a minimum).
+    lane_min = out.reshape(qa, part_pad // 4, 4).amin(dim=-1)
+    return out, lane_min.reshape(qa, part_pad // TILE, 8).amin(dim=-1)
 
 
 # ---------------------------------------------------------------- 7 + 8
@@ -1123,9 +1245,9 @@ def flat_scan_window(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
 
     Args:
       codes_rows: (N_pad/cpr, 128) uint8 row128 storage, N_pad % block_n == 0.
-      tables: (Q, M, 16) per-query tables, M in (16, 32): int8 with entries
-        in [0, 127] (int32 sums, no 127 saturation), or float32 (summed over
-        b = 0..cb-1, low nibble then high, as rows_adc sums).
+      tables: (Q, M, 16) per-query tables, M in (16, 32): int8 (int32 sums,
+        no 127 saturation), or float32 (summed over b = 0..cb-1, low nibble
+        then high, as rows_adc sums).
       n: real code count; codes at or past n are padding and enter no minimum.
       block_n, window: window g of a block of block_n codes holds the codes
         of slots {g, g + G, ...} (window_slots, slots_to_rows), G = block_n /
@@ -1140,27 +1262,76 @@ def flat_scan_window(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
       transpose_out; TRIM_SENTINEL (int32) or +inf (float32) for a window
       with no real code. idx (N_pad/W, Q) int32 code ids, -1 for such a
       window; None without with_rows.
+
+    With int8 tables it runs the warpgroup kernel over the window-major
+    columns of window_column_codes (csrc/scan_wgmma.cu, at any batch: a
+    partial group of 128 queries is masked); with float32 tables the lookup
+    kernel of csrc/flat_scan_window.cu.
     """
+    f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
+                                                with_rows, transpose_out, variant)
+    if codes_rows.device.type == "cpu":
+        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
+                                      transpose_out)
+    return _launch_flat_scan_window(codes_rows, tables, n, n_pad, cb, block_n, window,
+                                    with_rows, transpose_out,
+                                    "flat_scan_window_f32" if f32 else "flat_scan_window")
+
+
+def flat_scan_window_lookup(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                            window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                            transpose_out: bool = False, variant: str = "int8"):
+    """flat_scan_window's int8 result by the lookup kernel the tensor-core
+    one replaced (csrc/flat_scan_window.cu: a thread a (query, window), the
+    code block staged in slot order): the same arguments (int8 tables only)
+    and the same minima and ids, bit for bit. An A/B instrument: no search
+    path calls it."""
+    f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
+                                                with_rows, transpose_out, variant)
+    if f32:
+        raise TypeError(f"tables must be torch.int8, got {tables.dtype}")
+    if codes_rows.device.type == "cpu":
+        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
+                                      transpose_out)
+    return _launch_flat_scan_window(codes_rows, tables, n, n_pad, cb, block_n, window,
+                                    with_rows, transpose_out, "flat_scan_window_lookup")
+
+
+def _check_flat_scan_window(codes_rows, tables, n, block_n, window, with_rows, transpose_out,
+                            variant) -> tuple[bool, int, int, int]:
+    """Argument checks of flat_scan_window. Returns (float32 tables, cb, n
+    clipped, N_pad)."""
     if variant not in SCAN_VARIANTS:
         raise KeyError(variant)
     if with_rows and transpose_out:
         raise ValueError("transpose_out supports the min-only variant")
     cb, n, n_pad = _check_window_scan(codes_rows, tables, n, block_n, window, f32_ok=True)
+    return tables.dtype == torch.float32, cb, n, n_pad
+
+
+def _launch_flat_scan_window(codes_rows, tables, n: int, n_pad: int, cb: int, block_n: int,
+                             window: int, with_rows: bool, transpose_out: bool, kernel: str):
+    """Launch a window scan on checked CUDA tensors. `kernel` is its key in
+    `launches`: flat_scan_window runs the warpgroup kernel of scan_wgmma.cu,
+    flat_scan_window_f32 and flat_scan_window_lookup the lookup kernel of
+    flat_scan_window.cu."""
     dev = codes_rows.device
-    if dev.type == "cpu":
-        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
-                                      transpose_out)
     _require_cuda(dev, codes_rows, tables)
-    f32 = tables.dtype == torch.float32
+    f32 = kernel == "flat_scan_window_f32"
     q, c = tables.shape[0], n_pad // window
     out = torch.empty((q, c) if transpose_out else (c, q),
                       dtype=tables.dtype if f32 else torch.int32, device=dev)
     idx = torch.empty((c, q), dtype=torch.int32, device=dev) if with_rows else None
     if q and c:
-        _launch("qadc_flat_scan_window", dev, codes_rows.data_ptr(), tables.data_ptr(),
-                out.data_ptr(), None if idx is None else idx.data_ptr(), n_pad, q, n,
-                block_n, window, cb, int(f32), int(transpose_out))
-        launches["flat_scan_window"] += 1
+        ptrs = (codes_rows.data_ptr(), tables.data_ptr(), out.data_ptr(),
+                None if idx is None else idx.data_ptr())
+        if kernel == "flat_scan_window":
+            _launch("qadc_flat_scan_window_wgmma", dev, *ptrs, n_pad, q, n, block_n, window, cb,
+                    int(transpose_out))
+        else:
+            _launch("qadc_flat_scan_window", dev, *ptrs, n_pad, q, n, block_n, window, cb,
+                    int(f32), int(transpose_out))
+        launches[kernel] += 1
     return out, idx
 
 
@@ -1193,6 +1364,92 @@ def flat_scan_window_plain(codes_rows, tables, n: int, block_n: int = DEFAULT_BL
     if not with_rows:
         return best.T.contiguous(), None
     return best.T.contiguous(), torch.where(empty, -1, arg).to(torch.int32).T.contiguous()
+
+
+def fast_div(x, d: int):
+    """x // d for 0 <= x < 2**31 as csrc/window_columns.cuh:FastDiv computes
+    it: (umulhi(x, m) + x) >> s with s = ceil(log2 d), m = 2**32 (2**s - d)
+    / d + 1 (x an int or an int64 tensor)."""
+    s = (d - 1).bit_length()
+    m = ((1 << 32) * ((1 << s) - d)) // d + 1
+    return (((x * m) >> 32) + x) >> s
+
+
+def window_columns(n_pad: int, window: int) -> tuple[int, int]:
+    """(lw, columns) of the window-major order: each window takes W' = 2**lw
+    >= window columns, N_pad / window windows in all."""
+    lw = (window - 1).bit_length()
+    return lw, (n_pad // window) << lw
+
+
+def window_column_codes(gc: torch.Tensor, n_pad: int, block_n: int, window: int,
+                        cb: int) -> torch.Tensor:
+    """Code id of each global column gc of the window-major order (csrc/
+    window_columns.cuh:column_code), -1 for a dead column (rank >= window)
+    or one past the last window: column gc is rank k = gc % W' of window
+    w = gc // W', and for k < window it holds slot (w % G) + k*G of block
+    w // G (G = block_n / window), mapped by slots_to_rows."""
+    lw, total = window_columns(n_pad, window)
+    groups, rows = block_n // window, block_n // (128 // cb)
+    win, k = gc >> lw, gc & ((1 << lw) - 1)
+    blk = fast_div(win, groups)
+    slot = win - blk * groups + k * groups
+    c = fast_div(slot, rows)
+    code = blk * block_n + (slot - c * rows) * (128 // cb) + c
+    return torch.where((gc < total) & (k < window), code, -1)
+
+
+def flat_scan_window_tiles_plain(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                                 window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                                 transpose_out: bool = False, chunk_cols: int = 1 << 16):
+    """flat_scan_window's int8 function by the warpgroup kernel's own walk
+    (csrc/scan_wgmma.cu:flat_scan_window_wgmma_kernel): the same arguments
+    (int8 tables) and result as flat_scan_window_plain, bit for bit.
+
+    Columns run in the window-major order of window_column_codes, in tiles of
+    128; a column's sum is the product of the query's tables with its code's
+    one-hot (as scan_onehot_plain), its key the sum, with_rows (sum << lw) |
+    rank, and INT_MAX where the column holds no real code. A window's minimum
+    key is a minimum over a run of W' = 2**lw columns inside a tile, carried
+    over W' / 128 consecutive tiles for W' > 128; the key's low bits give the
+    rank, and window_column_codes the code id. Used by the tests and
+    chip_smoke.py, by no search path.
+    """
+    q, m, _ = tables.shape
+    cb = m // 2
+    n_pad = codes_rows.shape[0] * (128 // cb)
+    n = max(0, min(int(n), n_pad))
+    dev = codes_rows.device
+    lw, total = window_columns(n_pad, window)
+    wp, c_total = 1 << lw, n_pad // window
+    cols = -(-total // 128) * 128                                  # whole tiles
+    a = tables.reshape(q, 16 * m).to(torch.float32)                # (Q, 32*cb)
+    k0 = 32 * torch.arange(cb, device=dev)
+    codes = codes_rows.reshape(-1, cb)
+    none = torch.iinfo(torch.int32).max
+    keys = torch.empty((q, cols), dtype=torch.int32, device=dev)
+    for c0 in range(0, cols, chunk_cols):
+        gc = torch.arange(c0, min(cols, c0 + chunk_cols), device=dev)
+        code = window_column_codes(gc, n_pad, block_n, window, cb)
+        byte = codes[code.clamp(min=0)].long()                     # (cols, cb)
+        onehot = torch.zeros((gc.shape[0], 32 * cb), dtype=torch.int8, device=dev)
+        onehot.scatter_(1, k0 + (byte & 15), 1)
+        onehot.scatter_(1, k0 + 16 + (byte >> 4), 1)
+        sums = (onehot.to(torch.float32) @ a.T).to(torch.int32).T  # (Q, cols)
+        key = (sums << lw) | (gc & (wp - 1)).to(torch.int32) if with_rows else sums
+        keys[:, c0:c0 + gc.shape[0]] = torch.where((code >= 0) & (code < n), key, none)
+    run = min(wp, 128)
+    best = keys.reshape(q, cols // run, run).amin(dim=-1)          # runs inside a tile
+    best = best.reshape(q, c_total, wp // run).amin(dim=-1) if wp > 128 else best[:, :c_total]
+    empty = best == none
+    vals = torch.where(empty, TRIM_SENTINEL, best >> lw if with_rows else best)
+    if transpose_out:
+        return vals.contiguous(), None
+    if not with_rows:
+        return vals.T.contiguous(), None
+    win = torch.arange(c_total, device=dev)
+    ids = window_column_codes((win << lw)[None, :] | (best & (wp - 1)), n_pad, block_n, window, cb)
+    return vals.T.contiguous(), torch.where(empty, -1, ids).to(torch.int32).T.contiguous()
 
 
 def flat_scan_window_regs(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,

@@ -5,9 +5,10 @@ The JAX package designed its TPU scans with four scratch scripts; each has
 its counterpart here, over the tensor-core scan of csrc/scan_mma.cuh:
 
   benchmarks/ab_tq.py:lut_scan_tq       A/B of two formulations of one scan
-      -> `ab_scans`: lut_scan.flat_scan (int8 one-hot x table mma) against
-         flat_scan_lookup (shared-memory lookups), flat_scan_window and
-         flat_scan_window_regs (tables in registers), minima equal bit for bit
+      -> `ab_scans`: lut_scan.flat_scan and flat_scan_window (int8 one-hot
+         x table mma) against flat_scan_lookup and flat_scan_window_lookup
+         (shared-memory lookups) and flat_scan_window_regs (tables in
+         registers), minima equal bit for bit
   benchmarks/ab_tq_ablate.py:scan       where the time outside the matrix unit goes
       -> `scan_lab` modes full / const_onehot / no_mma / no_min, of the
          mma.sync kernel and (wg_*) of the warpgroup kernel
@@ -311,8 +312,11 @@ def exactness_probe(codes_rows, n: int, m: int, q: int = 128, seed: int = 0,
 
 
 def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
-    """The four engines that compute one flat int8 scan (window = cpr, so a
-    window is a storage row), each as a call returning (Q, R) minima."""
+    """The engines that compute one flat int8 scan (window = cpr, so a window
+    is a storage row), each as a call returning (Q, R) minima: flat_scan and
+    flat_scan_window on the tensor cores (the window scan in its
+    window-major column order), and the lookup kernels of flat_scan_lookup,
+    flat_scan_window_lookup and flat_scan_window_regs."""
     cb = tables.shape[1] // 2
     block = 64 * (128 // cb)      # 64 storage rows a code block: windows are rows
     if (codes_rows.shape[0] * (128 // cb)) % block:
@@ -323,15 +327,19 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
         "flat_scan_lookup": lambda: lut_scan.flat_scan_lookup(codes_rows, tables, n)[0],
         "flat_scan_window": lambda: lut_scan.flat_scan_window(
             codes_rows, tables, n, block, window, transpose_out=True)[0],
+        "flat_scan_window_lookup": lambda: lut_scan.flat_scan_window_lookup(
+            codes_rows, tables, n, block, window, transpose_out=True)[0],
         "flat_scan_window_regs": lambda: lut_scan.flat_scan_window_regs(
             codes_rows, tables, n, block, window).T,
     }
 
 
 # The kernel each A/B engine launches (a profiler's name filter).
-# flat_scan launches flat_scan_wgmma_kernel or flat_scan_mma_kernel, by its batch.
+# flat_scan launches flat_scan_wgmma_kernel or flat_scan_mma_kernel by its
+# batch, flat_scan_window flat_scan_window_wgmma_kernel or _mma_kernel.
 AB_KERNELS = {"flat_scan": "mma_kernel", "flat_scan_lookup": "flat_scan_kernel",
-              "flat_scan_window": "flat_scan_window_kernel",
+              "flat_scan_window": "mma_kernel",
+              "flat_scan_window_lookup": "flat_scan_window_kernel",
               "flat_scan_window_regs": "flat_scan_window_regs_kernel"}
 
 

@@ -11,10 +11,11 @@ for the table of modes). Over 1,000,448 seeded random 16x4 codes and 128
 queries' int8 tables it prints, in device milliseconds (torch.profiler,
 100 launches each):
 
-  A/B      flat_scan (int8 one-hot x table product: wgmma at this batch)
-           against flat_scan_lookup (shared-memory lookups), flat_scan_window
-           and flat_scan_window_regs (tables in registers), after checking
-           that all four give the same minima bit for bit;
+  A/B      flat_scan and flat_scan_window (int8 one-hot x table product:
+           wgmma at this batch) against flat_scan_lookup and
+           flat_scan_window_lookup (shared-memory lookups) and
+           flat_scan_window_regs (tables in registers), after checking that
+           all five give the same minima bit for bit;
   sweep    flat_scan by its wgmma kernel and by its mma.sync kernel at 8 to
            128 queries: the crossover behind lut_scan.WGMMA_MIN_QUERIES;
   modes    the mma.sync scan with parts removed: full, const_onehot, no_mma,

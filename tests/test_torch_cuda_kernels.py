@@ -6,13 +6,13 @@ run it without the JAX test configuration:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
 Tolerances: M1, flat_scan (the tensor-core kernels and their _lookup twins),
-flat_scan_window and flat_scan_window_regs with
-int8 tables (int32 sums) bit-exact; the float scans (M1, flat_scan and
+flat_scan_window (the tensor-core kernel, the lookup arm and the tile
+walk) and flat_scan_window_regs with int8 tables (int32 sums) bit-exact; the float scans (M1, flat_scan and
 flat_scan_window with float tables, grouped_scan8, flat_scan8), M2 and M3
 rtol 1e-6, atol 1e-5 * max: the plain versions sum in the
 kernels' order, but the card may contract or round differently; the staged
-M2 is also held bit for bit to its plain version and to the arm it replaced
-(one sum order, adds only). MASK_BIG
+M2 and the chunked M3 are also held bit for bit to their plain versions and
+to the arms they replaced (one sum order, adds only). MASK_BIG
 placement, trim sentinels and dead windows exact; argmin indices equal
 (flat scans: wherever the minima are equal bit for bit).
 """
@@ -183,6 +183,73 @@ def test_direct_scan_matches_plain(cuda, cb):
     _close(got_m, want_m)
 
 
+# M3 at the direct path's shapes: (partitions, part_pad, pairs), the bench
+# IVF-256 16x4 index (part_pad 4,096) and the CLI's trained one (12,288) at
+# b = 1, 32 and 128 (ma 24); and small ones with a partition of size 0.
+DIRECT_SHAPES = [(256, 4096, 24), (256, 4096, 768), (256, 4096, 3072), (256, 12288, 24),
+                 (256, 12288, 768), (256, 12288, 3072), (5, 512, 7), (5, 256, 33)]
+
+
+def _direct_inputs(parts, part_pad, qa, cb, seed=0):
+    g = np.random.default_rng([seed, parts, part_pad, qa, cb])
+    codes = torch.from_numpy(g.integers(0, 256, (parts, part_pad * cb // 128, 128),
+                                        dtype=np.uint8))
+    sizes = g.integers(0, part_pad + 1, parts).astype(np.int32)
+    sizes[:4] = (0, 1, part_pad, part_pad - 33)     # empty, one code, full, a partial tile
+    pp = g.integers(0, parts, qa).astype(np.int32)
+    pp[:min(qa, 4)] = np.arange(min(qa, 4))
+    tlo = g.uniform(0, 30, (qa, 16 * cb)).astype(np.float32)
+    thi = g.uniform(0, 30, (qa, 16 * cb)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (pp, tlo, thi)], codes, torch.from_numpy(sizes[pp])
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("parts,part_pad,qa", DIRECT_SHAPES)
+def test_direct_scan_equals_plain_and_arm(cuda, parts, part_pad, qa, cb):
+    """The chunked M3 equals its arm (direct_scan_blocks) and its plain version
+    bit for bit: distances, tile minima and MASK_BIG at and past each size."""
+    (pp, tlo, thi), codes, sizes = _direct_inputs(parts, part_pad, qa, cb)
+    args = [x.to(cuda) for x in (codes, pp, tlo, thi, sizes)]
+    before = dict(lut_scan.launches)
+    got = lut_scan.direct_scan(*args)
+    arm = lut_scan.direct_scan_blocks(*args)
+    want = lut_scan.direct_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["direct_scan"] == before["direct_scan"] + 1
+    assert lut_scan.launches["direct_scan_blocks"] == before["direct_scan_blocks"] + 1
+    for x in (arm, want):
+        assert torch.equal(got[0], x[0]) and torch.equal(got[1], x[1])
+    col = torch.arange(part_pad, device=cuda)
+    assert torch.equal(got[0] == lut_scan.MASK_BIG, col[None, :] >= args[4][:, None])
+    assert (got[0][args[4] == 0] == lut_scan.MASK_BIG).all()
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("rounds", [1, 2, 3, 4])
+def test_direct_scan_at_any_rounds(cuda, monkeypatch, cb, rounds):
+    """Every number of rounds a block (part_pad 12,288 = 12 rounds of 1024,
+    and 768, less than one) gives the plain result and the walk's."""
+    monkeypatch.setattr(lut_scan, "direct_scan_rounds", lambda qa, part_pad, sms: rounds)
+    for parts, part_pad, qa in ((7, 12288, 9), (5, 768, 11)):
+        (pp, tlo, thi), codes, sizes = _direct_inputs(parts, part_pad, qa, cb, seed=rounds)
+        args = [x.to(cuda) for x in (codes, pp, tlo, thi, sizes)]
+        got = lut_scan.direct_scan(*args)
+        walk = lut_scan.direct_scan_items_plain(*[a.cpu() for a in args], rounds)
+        for x in (walk, lut_scan.direct_scan_plain(*args)):
+            assert torch.equal(got[0].cpu(), x[0].cpu()) and torch.equal(got[1].cpu(), x[1].cpu())
+
+
+def test_direct_searches_launch_only_the_chunked_m3(cuda):
+    arrays, meta = bench_ivf_arrays(np.random.default_rng(0), parts=16)
+    index = ivf_index_from_arrays(arrays, meta, cuda)
+    queries = np.random.default_rng(1).normal(size=(4, 128)).astype(np.float32)
+    before = dict(lut_scan.launches)
+    ivf.search_qadc(index, queries, r=50, ma=4, direct=True)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["direct_scan"] == before["direct_scan"] + 1
+    assert lut_scan.launches["direct_scan_blocks"] == before["direct_scan_blocks"]
+
+
 def test_wrappers_raise_on_bad_input(cuda):
     codes = torch.zeros((2, 4, 128), dtype=torch.uint8, device=cuda)
     tlo = torch.zeros((3, 128), dtype=torch.float32, device=cuda)
@@ -313,11 +380,12 @@ def test_flat_scan_window_matches_plain(cuda, m, block_n, window, f32, mode):
     codes, tables, n = _window_inputs(m, block_n, f32)
     kw = dict(with_rows=mode == "rows", transpose_out=mode == "transposed")
     want_v, want_i = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window, **kw)
-    before = lut_scan.launches["flat_scan_window"]
+    key = "flat_scan_window_f32" if f32 else "flat_scan_window"
+    before = lut_scan.launches[key]
     got_v, got_i = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n,
                                              window, **kw)
     torch.cuda.synchronize()
-    assert lut_scan.launches["flat_scan_window"] == before + 1
+    assert lut_scan.launches[key] == before + 1
     _same_minima(got_v.cpu(), want_v, f32)
     if mode == "rows":
         same = got_v.cpu() == want_v
@@ -350,6 +418,68 @@ def test_flat_scan_window_regs_takes_negative_entries(cuda):
     want, _ = lut_scan.flat_scan_window_plain(codes, tables, 2048, 1024, 16)
     got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), 2048, 1024, 16)
     assert torch.equal(got.cpu(), want)
+
+
+# (m, block_n, window) of the tensor-core window scans: those of
+# WINDOW_SHAPES, W = 2 cpr, windows longer than a tile (256 > 128 columns;
+# 1024), W = 1, and windows of no power of two (24, 3: dead columns).
+WINDOW_TC_SHAPES = WINDOW_SHAPES + [(16, 1024, 32), (32, 1024, 32), (16, 2048, 256),
+                                    (32, 2048, 256), (16, 1024, 1024), (16, 1024, 1),
+                                    (32, 1536, 24), (16, 1536, 3)]
+
+
+@pytest.mark.parametrize("m,block_n,window", WINDOW_TC_SHAPES)
+@pytest.mark.parametrize("q", [5, 37, 130])    # one group of 128 queries, partly masked; two
+@pytest.mark.parametrize("mode", ["min", "rows", "transposed"])
+def test_flat_scan_window_tensor_cores_equal_arm_and_plain(cuda, m, block_n, window, q, mode):
+    """The int8 window scan on the tensor cores equals the lookup kernel it
+    replaced (flat_scan_window_lookup), the plain version and its own walk
+    bit for bit: minima, transposed minima and argmin ids (ties: few
+    distinct entries; the lowest slot wins, not the lowest code at W > cpr),
+    with padded codes inside a block."""
+    codes, tables, n = _window_inputs(m, block_n, False, q=q)
+    kw = dict(with_rows=mode == "rows", transpose_out=mode == "transposed")
+    before = dict(lut_scan.launches)
+    got = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n, window, **kw)
+    arm = lut_scan.flat_scan_window_lookup(codes.to(cuda), tables.to(cuda), n, block_n, window,
+                                           **kw)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan_window"] == before["flat_scan_window"] + 1
+    assert lut_scan.launches["flat_scan_window_lookup"] == before["flat_scan_window_lookup"] + 1
+    plain = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window, **kw)
+    walk = lut_scan.flat_scan_window_tiles_plain(codes, tables, n, block_n, window, **kw)
+    for other in (arm, plain, walk):
+        assert torch.equal(got[0].cpu(), other[0].cpu())
+        assert got[1] is other[1] is None or torch.equal(got[1].cpu(), other[1].cpu())
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("q", [9, 130])
+def test_flat_scan_window_at_cpr_is_flat_scan(cuda, m, q):
+    """At W = cpr a window is a storage row: the window scan's transposed
+    minima are flat_scan's, and its ids flat_scan's with rows, transposed."""
+    cpr = 256 // m
+    codes, tables, n = _window_inputs(m, 1024, False, q=q, blocks=7)
+    codes, tables = codes.to(cuda), tables.to(cuda)
+    mins, _ = lut_scan.flat_scan_window(codes, tables, n, 1024, cpr, transpose_out=True)
+    vals, ids = lut_scan.flat_scan_window(codes, tables, n, 1024, cpr, with_rows=True)
+    f_mins, f_ids = lut_scan.flat_scan(codes, tables, n, with_rows=True)
+    assert torch.equal(mins, f_mins) and torch.equal(vals.T, f_mins) and torch.equal(ids.T, f_ids)
+
+
+def test_flat_scan_window_negative_entries(cuda):
+    """int8 entries below zero: the keys (sum << lw) | rank order them too."""
+    g = np.random.default_rng(19)
+    codes = torch.from_numpy(g.integers(0, 256, (512, 128), dtype=np.uint8))
+    for m, q in ((16, 33), (32, 64)):
+        tables = torch.from_numpy(g.integers(-128, 128, (q, m, 16)).astype(np.int8))
+        for block_n, window in ((1024, 16), (2048, 256)):
+            n_pad = 512 * 256 // m
+            got = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n_pad - 5, block_n,
+                                            window, with_rows=True)
+            want = lut_scan.flat_scan_window_plain(codes, tables, n_pad - 5, block_n, window,
+                                                   with_rows=True)
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def test_lut_scan_topk_int8_on_card_matches_plain(cuda):

@@ -6,6 +6,12 @@ Tolerance: rtol 1e-6, atol 1e-5 * max (float32 sums of 16 terms in another
 order); MASK_BIG placement exact; the port's 32-code tile minima equal the
 minima of its own output exactly.
 
+The chunked kernel's walk (lut_scan.direct_scan_items_plain: items of a pair
+and rounds x 1024 codes, 4 codes a lane, the tables staged transposed, the
+tile minima over 8 lanes) equals direct_scan_plain bit for bit at every
+number of rounds, with empty and partial partitions, and the reference at
+the same tolerance; direct_scan_rounds picks the rounds by the grid.
+
 The b=1 tie case: integer-valued centroids and query make many probed codes
 share a distance. Distances equal the reference's exactly; labels are compared
 by distance plateau, because neither package orders a plateau by a rule: both
@@ -71,6 +77,72 @@ def test_direct_scan_matches_reference(kind):
         assert (got[pflat == EMPTY_PART] == lut_scan.MASK_BIG).all()
         tiny = pflat == TINY_PART
         assert (got[tiny] < lut_scan.MASK_BIG).sum() == TINY_SIZE * tiny.sum()
+
+
+@pytest.mark.parametrize("rounds", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["trained", "synthetic"])
+def test_direct_scan_walk_matches_reference(kind, rounds):
+    jindex, pflat, tlo, thi = _pairs(kind)
+    qa = pflat.shape[0]
+    cpr, cb = jindex.cpr, jindex.pq.code_size
+    rpp = jindex.part_pad // cpr
+    sizes = np.asarray(jindex.part_sizes)[pflat]
+    jd, _ = jls.rows_adc_grouped_prefetch(
+        jindex.codes.reshape(-1, 128), jnp.asarray(pflat), jnp.asarray(tlo),
+        jnp.asarray(thi), rpp, cb=cb, interpret=True, compact_out=True,
+        mask_sizes=jnp.asarray(sizes), tile_min=32)
+    want = np.asarray(jd).reshape(qa, cpr, rpp).transpose(0, 2, 1).reshape(qa, -1)
+    args = (to_port(jindex).codes, torch.from_numpy(pflat), torch.from_numpy(tlo),
+            torch.from_numpy(thi), torch.from_numpy(sizes))
+    got, mins = lut_scan.direct_scan_items_plain(*args, rounds)
+    plain = lut_scan.direct_scan_plain(*args)
+    assert torch.equal(got, plain[0]) and torch.equal(mins, plain[1])
+    got = got.numpy()
+    big = want == jls.MASK_BIG
+    np.testing.assert_array_equal(got == lut_scan.MASK_BIG, big)
+    np.testing.assert_allclose(got[~big], want[~big], rtol=1e-6,
+                               atol=1e-5 * np.abs(want[~big]).max())
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("rounds", [1, 2, 4])
+@pytest.mark.parametrize("part_pad", [256, 768, 2048, 4352])
+def test_direct_scan_walk_equals_plain(cb, rounds, part_pad):
+    """Partitions of size 0, 1, 31, 33, full and one short of full; part_pad
+    less than a round, a partial round and several rounds."""
+    g = np.random.default_rng([cb, rounds, part_pad])
+    parts, qa = 6, 9
+    codes = torch.from_numpy(g.integers(0, 256, (parts, part_pad * cb // 128, 128),
+                                        dtype=np.uint8))
+    part_sizes = np.array([0, 1, 31, 33, part_pad, part_pad - 1], np.int32)
+    pp = g.integers(0, parts, qa).astype(np.int32)
+    pp[:parts] = np.arange(parts)
+    args = (codes, torch.from_numpy(pp),
+            torch.from_numpy(g.uniform(0, 30, (qa, 16 * cb)).astype(np.float32)),
+            torch.from_numpy(g.uniform(0, 30, (qa, 16 * cb)).astype(np.float32)),
+            torch.from_numpy(part_sizes[pp]))
+    got = lut_scan.direct_scan_items_plain(*args, rounds)
+    want = lut_scan.direct_scan_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][0] == lut_scan.MASK_BIG).all()              # the empty partition
+    blocks = lut_scan.direct_scan_blocks(*args)                # the arm's plain version
+    assert torch.equal(blocks[0], want[0]) and torch.equal(blocks[1], want[1])
+
+
+def test_direct_scan_rounds_fill_the_sms():
+    """One round where four would leave an SM of 132 without a block (b=1:
+    24 pairs); four otherwise; never more than a pair's rounds."""
+    sms = 132
+    assert lut_scan.direct_scan_rounds(24, 4096, sms) == 1
+    assert lut_scan.direct_scan_rounds(24, 12288, sms) == 1
+    assert lut_scan.direct_scan_rounds(768, 4096, sms) == 4
+    assert lut_scan.direct_scan_rounds(768, 12288, sms) == 4
+    assert lut_scan.direct_scan_rounds(3072, 4096, sms) == 4
+    assert lut_scan.direct_scan_rounds(3072, 12288, sms) == 4
+    assert lut_scan.direct_scan_rounds(131, 4096, sms) == 1
+    assert lut_scan.direct_scan_rounds(132, 4096, sms) == 4
+    assert lut_scan.direct_scan_rounds(10 ** 6, 1024, sms) == 1
+    assert lut_scan.direct_scan_rounds(10 ** 6, 2048, sms) == 2
 
 
 def test_direct_scan_checks_part_pad():
