@@ -101,7 +101,19 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      search_qadc forced direct and grouped at b = 1..32 (the crossover); and
      autotune.tune_ivf_qadc at b=32 into a cache in the run's temporary
      directory, a search without group_size consuming the pick. One
-     `workflow` JSON line holds the numbers.
+     `workflow` JSON line holds the numbers;
+  8. the sharded searches (sharded_phases) under a process group of one
+     rank over NCCL (maybe_init_distributed through the QADC_* variables),
+     on a mesh of 4 shards on the card: at the bench geometry the
+     partition-sharded IVF Quick ADC (b=32, 128), the code-sharded flat
+     Quick ADC and float ADC (4-bit b=128, 8-bit b=32) and the
+     query-parallel ivf.search_qadc (b=128), each held to its plain twin,
+     the single-card search's top-1 and the float64 oracle; the IVF index
+     saved as 4 shard files and loaded into 4 and 2 shards (the reshard);
+     the Deep100M geometry (IVF-4096, dim 96, 16x4, 100M codes drawn on the
+     card) at b=32 and 512 against the unsharded grouped search and the
+     oracle. One `sharded` JSON line holds us/query, device-busy ms, idle
+     share and launches of each search.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -123,6 +135,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -174,6 +187,13 @@ PATH_KERNELS = {
     "serve": ("grouped_scan", "rows_adc", "direct_scan"),
     "crossover": ("grouped_scan", "rows_adc", "direct_scan"),
     "qadc_direct": ("direct_scan",),
+    "sharded_ivf": ("grouped_scan", "rows_adc"),
+    "sharded_checkpoint": ("grouped_scan", "rows_adc"),
+    "sharded_flat_qadc": ("flat_scan", "rows_adc"),
+    "sharded_flat_adc4": ("flat_scan_f32", "rows_adc"),
+    "sharded_flat_adc8": (),  # the exact per-code scan: no kernel of its own
+    "sharded_query_parallel": ("grouped_scan", "rows_adc"),
+    "sharded_deep100m": ("grouped_scan", "rows_adc"),
     "autotune": ("grouped_scan", "rows_adc"),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
                  "flat_scan_window", "flat_scan_window_lookup", "flat_scan_window_regs",
@@ -211,13 +231,29 @@ SERVE_REQUESTS, SERVE_THREADS, SERVE_BATCH, SERVE_WAIT_MS = 2000, 8, 128, 2.0
 SERVE_RTOL = 1e-6
 CROSSOVER_BATCHES, CROSSOVER_REPS = (1, 2, 4, 8, 16, 32, 64, 128), 30
 M3_ROUNDS = (1, 2, 4)    # rounds a direct_scan block, fixed in turns at each M3 shape
-# CUDA kernels torch.profiler must see launched by each workflow phase.
+# The sharded phase (8): a mesh of SHARDS shards on the one card (and of 2 for
+# the reshard), timed over SHARDED_REPS runs; the Deep100M geometry of
+# benchmarks/deep100m_v2.py:38-58 (IVF-4096, dim 96, 16x4 PQ, 100M codes).
+SHARDS, SHARDED_REPS, SHARDED_RTOL = 4, 30, 1e-6
+SHARDED_IVF_BATCHES = (32, 128)
+DEEP_PARTS, DEEP_DIM, DEEP_M, DEEP_N = 4096, 96, 16, 100_000_000
+DEEP_BATCHES, DEEP_ORACLE_NQ = (32, 512), 8
+# The sharded phase's search paths (phase 8).
+SHARDED_PATHS = tuple(p for p in PATH_KERNELS if p.startswith("sharded_"))
+# CUDA kernels torch.profiler must see launched by each workflow and sharded phase.
 PROFILED_KERNELS = {
     "cli_ivf_qadc": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
     "cli_ivf_adc": ("grouped_scan_sm_kernel", "rows_adc_kernel"),
     "cli_flat_qadc": ("flat_scan_wgmma_kernel", "rows_adc_kernel"),
     "engine": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
     "serve": ("grouped_scan_mma_kernel", "rows_adc_kernel", "direct_scan_kernel"),
+    "sharded_ivf": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "sharded_checkpoint": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "sharded_flat_qadc": ("flat_scan_wgmma_kernel", "rows_adc_kernel"),
+    "sharded_flat_adc4": ("flat_scan_qm_kernel", "rows_adc_kernel"),
+    "sharded_flat_adc8": (),
+    "sharded_query_parallel": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "sharded_deep100m": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
 }
 
 
@@ -1306,12 +1342,18 @@ def main() -> int:
         "launch_floor_ms": kernels["empty_kernel"]["ms"],
         "selector_sum_ms": kernels["selector_sum"]["ms"], **lab_out}, "card": card}), flush=True)
 
-    # The launch count of each kernel phase comes from the path that runs it.
+    # ---- 8. the sharded searches on one card, a process group of one rank ----
+    sharded_phases(torch, np, device, card, drive, launches, index, queries, flat_indexes, fq,
+                   Path(workdir.name) / "sharded")
+
+    # The launch count of each kernel phase comes from the path that runs it;
+    # sharded_launches: the sharded paths' runs (phase 8) that launched it.
     line = {"kernels": []}
     for name, k in kernels.items():
         base = name.split("[")[0]
         path = k.pop("path") or PATH_OF.get(base, "qadc")
-        line["kernels"].append({**k, "launches": launches[path][base]})
+        line["kernels"].append({**k, "launches": launches[path][base], "sharded_launches": {
+            p: launches[p][base] for p in SHARDED_PATHS if launches[p].get(base)}})
     workdir.cleanup()
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
@@ -1335,6 +1377,23 @@ def kernels_seen(torch, fn):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return ({e.key: e.count for e in events},
             sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def device_ops(torch, fn, top: int = 4) -> tuple[int, dict]:
+    """(device ops (kernels and copies) one run of fn launches as
+    torch.profiler records them, the `top` largest by device us, names cut
+    to 60 characters)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    return (sum(e.count for e in events),
+            {e.key[:60]: round(e.self_device_time_total, 2) for e in events[:top]})
 
 
 def require_kernels(phase: str, seen: dict) -> dict:
@@ -1668,6 +1727,265 @@ def workflow_phases(torch, np, device, card, base_np, queries_np, drive, work: P
     report["profiled_kernels"] = seen_all
     print(json.dumps({"workflow": report}, default=float), flush=True)
     return ivf_index
+
+
+def sharded_phases(torch, np, device, card, drive, launches, index, queries, flat_indexes, fq,
+                   work: Path) -> None:
+    """Phase 8: the sharded searches (qadc_tpu_torch/dist) on the one card.
+
+    A process group of one rank over NCCL through the QADC_* variables
+    (maybe_init_distributed), and a mesh of SHARDS shards on the card (2 for
+    the reshard). At the bench geometry (the indexes of phase 2): the
+    partition-sharded IVF search at b=32 and 128, the code-sharded flat
+    Quick ADC at b=128 and float ADC (4-bit b=128, 8-bit b=32), the
+    query-parallel ivf.search_qadc at b=128, each held to the same call
+    through lut_scan.PLAIN (equal; 4-bit float ADC rtol 1e-6), to the
+    single-card search (top-1 labels equal) and to the float64 oracle; the
+    IVF index saved as SHARDS shard files and loaded into 4 and 2 shards. At
+    the Deep100M geometry (drawn on the card from a seeded generator): the
+    sharded IVF search at b=32 and 512 against the unsharded grouped search
+    (top-1 equal, recall of its top-100) and the oracle on 8 queries. Each
+    path's launches are counted (drive) and seen by the profiler; one
+    `sharded` JSON line holds us/query, device-busy ms, idle share and
+    launches of each search.
+    """
+    import torch.distributed as dist
+
+    from qadc_tpu_torch.core.layout import code_view
+    from qadc_tpu_torch.core.packing import unpack_codes
+    from qadc_tpu_torch.dist import (load_sharded_index, make_mesh, search_adc_flat_sharded,
+                                     search_qadc_flat_sharded, search_qadc_ivf_sharded,
+                                     search_query_parallel, shard_flat_codes,
+                                     shard_ivf_partitions)
+    from qadc_tpu_torch.dist.mesh import maybe_init_distributed
+    from qadc_tpu_torch.eval.recall import recall_at_r
+    from qadc_tpu_torch.index import flat, ivf
+    from qadc_tpu_torch.io.checkpoint import save_index_sharded
+    from qadc_tpu_torch.kernels.lut_scan import DISPATCH, PLAIN
+    from qadc_tpu_torch.quantizers.pq import ProductQuantizer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(QADC_COORDINATOR=f"127.0.0.1:{port}", QADC_NUM_PROCESSES="1",
+                      QADC_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    check(maybe_init_distributed(device=device) and dist.is_initialized(),
+          "sharded: the process group did not start")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"sharded: backend {dist.get_backend()}, world {dist.get_world_size()}")
+    probe = torch.ones(1, device=device)
+    dist.all_reduce(probe)
+    check(float(probe) == 1.0, "sharded: NCCL all_reduce")
+    print(f"sharded: NCCL process group of 1 rank, all_reduce done, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    out = {}
+    try:
+        mesh = make_mesh(SHARDS, device=device)
+        check((mesh.shards, mesh.world, mesh.local_shards) == (SHARDS, 1, SHARDS),
+              f"sharded: mesh {mesh}")
+
+        def measure(name, path, b, fn, single_fn):
+            """Time one search (CUDA events; profiler device time) and its
+            single-card counterpart in turns, and record its path's launches."""
+            ms, p90 = time_ms(torch, fn, SHARDED_REPS)
+            busy = device_ms(torch, fn, reps=SHARDED_REPS)
+            single_ms = time_ms(torch, single_fn, SHARDED_REPS)[0]
+            ops, top = device_ops(torch, fn)
+            out[name] = {"batch": b, "us_per_query_median": ms * 1e3 / b,
+                         "us_per_query_p90": p90 * 1e3 / b, "ms_per_batch": ms,
+                         "device_busy_ms": busy, "idle_share": 1 - busy / ms,
+                         "single_card_us_per_query_median": single_ms * 1e3 / b,
+                         "launches": {k: v for k, v in launches[path].items() if v},
+                         "device_ops": ops, "largest_device_us": top, **out.get(name, {})}
+            print(f"e2e sharded {name}: {ms * 1e3 / b:.2f} us/query median, {p90 * 1e3 / b:.2f} "
+                  f"p90 (n={SHARDED_REPS}; device busy {busy:.4f} ms/batch, idle share "
+                  f"{1 - busy / ms:.3f}; single card {single_ms * 1e3 / b:.2f} us/query; "
+                  f"{ops} device ops, largest {top}) [{card}]", flush=True)
+
+        def run(path, fn):
+            """drive (counts reset, kernels required), then the profiler's view."""
+            got = drive(path, fn)
+            seen = require_kernels(path, kernels_seen(torch, fn)[0])
+            return got, seen
+
+        def hold(name, b, got, plain, single, exact=True):
+            """Shape, order; the plain twin (equal, or rtol 1e-6 with equal
+            top-1 and overlap >= 98); the single card's top-1."""
+            (d, lab), (pd, pl) = got, plain
+            check(d.shape == (b, R) and lab.shape == (b, R), f"{name}: result shape")
+            check(bool(torch.isfinite(d).all()), f"{name}: non-finite distances")
+            check(bool((d[:, 1:] >= d[:, :-1]).all()), f"{name}: distances not ascending")
+            if exact:
+                check(torch.equal(d, pd) and torch.equal(lab, pl), f"{name}: differs from plain")
+            else:
+                torch.testing.assert_close(d, pd, rtol=SHARDED_RTOL, atol=0.0,
+                                           msg=lambda m: f"{name}: kernels vs plain: {m}")
+                check(bool(torch.equal(lab[:, 0], pl[:, 0])) and overlap(lab, pl) >= 98,
+                      f"{name}: labels vs plain")
+            top1 = bool(torch.equal(lab[:, 0], single[1][:, 0]))
+            check(top1, f"{name}: top-1 differs from the single-card search")
+            out[name] = {"plain_equal": bool(torch.equal(d, pd) and torch.equal(lab, pl)),
+                         "single_top1_equal": top1,
+                         "overlap_with_single": overlap(lab, single[1])}
+
+        def oracle_top1(name, lab, ol):
+            rec = recall_at_r(lab.cpu().numpy(), ol[:, :1].cpu().numpy())
+            check(rec >= MIN_ORACLE_RECALL, f"{name}: oracle recall {rec}")
+            out[name]["oracle_top1_recall"] = rec
+            return rec
+
+        # -- the bench IVF-256 16x4 index, partition-sharded -----------------
+        ivf_s = shard_ivf_partitions(index, mesh)
+
+        def ivf_search(ix, b, k=DISPATCH, mesh_=mesh):
+            return search_qadc_ivf_sharded(ix, queries[b], r=R, ma=MA, keep=KEEP, mesh=mesh_,
+                                           kernels=k)
+
+        def ivf_single(b):
+            return ivf.search_qadc(index, queries[b], r=R, ma=MA, keep=KEEP)
+
+        got, seen = run("sharded_ivf", lambda: {b: ivf_search(ivf_s, b)
+                                                for b in SHARDED_IVF_BATCHES})
+        for b, res in got.items():
+            name = f"ivf b={b}"
+            hold(name, b, res, ivf_search(ivf_s, b, PLAIN), ivf_single(b))
+            _, ol = oracle(torch, index, queries[b], code_view, unpack_codes, ivf)
+            oracle_top1(name, res[1], ol)
+            out[name]["profiled_launches"] = seen
+            measure(name, "sharded_ivf", b, lambda: ivf_search(ivf_s, b), lambda: ivf_single(b))
+
+        # -- the sharded checkpoint: 4 files, loaded into 4 and into 2 shards --
+        ck = str(work / "ivf_sharded")
+        t0 = time.perf_counter()
+        save_index_sharded(ck, index, SHARDS)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_sharded_index(ck, mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for f in ("codes", "labels", "part_sizes", "coarse_centroids"):
+            check(torch.equal(getattr(loaded, f), getattr(ivf_s, f)), f"sharded load: {f}")
+        back, seen = run("sharded_checkpoint", lambda: {b: ivf_search(loaded, b)
+                                                        for b in SHARDED_IVF_BATCHES})
+        for b, res in back.items():
+            check(torch.equal(res[0], got[b][0]) and torch.equal(res[1], got[b][1]),
+                  f"sharded checkpoint b={b}: differs from the sharded index's search")
+        mesh2 = make_mesh(2, device=device)
+        loaded2 = load_sharded_index(ck, mesh2)
+        direct2 = shard_ivf_partitions(index, mesh2)
+        for f in ("codes", "labels", "part_sizes", "coarse_centroids"):
+            check(torch.equal(getattr(loaded2, f), getattr(direct2, f)), f"reshard load: {f}")
+        for b in SHARDED_IVF_BATCHES:
+            d2, l2 = ivf_search(loaded2, b, mesh_=mesh2)
+            w2 = ivf_search(direct2, b, mesh_=mesh2)
+            check(torch.equal(d2, w2[0]) and torch.equal(l2, w2[1]),
+                  f"reshard b={b}: differs from the 2-shard index's search")
+            check(torch.equal(l2[:, 0], got[b][1][:, 0]), f"reshard b={b}: top-1")
+        out["checkpoint"] = {"save_s": t_save, "load_s": t_load, "shard_files": SHARDS,
+                             "launches": {k: v for k, v in launches["sharded_checkpoint"].items()
+                                          if v}, "profiled_launches": seen,
+                             "reshard_2_shards_equal": True}
+        print(f"sharded checkpoint: {SHARDS} shard files saved in {t_save:.3f} s, loaded in "
+              f"{t_load:.3f} s; equal to the sharded index and its searches; loaded into 2 "
+              f"shards: the 2-shard index's arrays and results [{card}]", flush=True)
+        del loaded, loaded2, direct2, back
+
+        # -- the flat indexes, code-sharded --------------------------------------
+        fs = {bits: shard_flat_codes(flat_indexes[bits], mesh) for bits in (4, 8)}
+        flat_cases = {
+            "flat_qadc": ("sharded_flat_qadc", 128, True,
+                          lambda k=DISPATCH: search_qadc_flat_sharded(
+                              fs[4], fq[128], r=R, keep=FLAT_KEEP, mesh=mesh, kernels=k),
+                          lambda: flat.search_qadc(flat_indexes[4], fq[128], r=R, keep=FLAT_KEEP)),
+            "flat_adc4": ("sharded_flat_adc4", 128, False,
+                          lambda k=DISPATCH: search_adc_flat_sharded(fs[4], fq[128], r=R,
+                                                                     mesh=mesh, kernels=k),
+                          lambda: flat.search_adc(flat_indexes[4], fq[128], r=R)),
+            "flat_adc8": ("sharded_flat_adc8", 32, True,
+                          lambda k=DISPATCH: search_adc_flat_sharded(fs[8], fq[32], r=R,
+                                                                     mesh=mesh, kernels=k),
+                          lambda: flat.search_adc(flat_indexes[8], fq[32], r=R)),
+        }
+        for name, (path, b, exact, fn, single_fn) in flat_cases.items():
+            res, seen = run(path, fn)
+            hold(name, b, res, fn(PLAIN), single_fn(), exact=exact)
+            bits = 8 if name == "flat_adc8" else 4
+            od, ol = flat_oracle(torch, flat_indexes[bits], fq[b], unpack_codes)
+            oracle_top1(name, res[1], ol)
+            if name != "flat_qadc":  # exact float ADC: the oracle's top-r
+                torch.testing.assert_close(res[0].double(), od, rtol=SEARCH_RTOL, atol=0.0,
+                                           msg=lambda m: f"{name} vs oracle: {m}")
+            out[name]["profiled_launches"] = seen
+            measure(name, path, b, fn, single_fn)
+
+        # -- query-parallel ivf.search_qadc -----------------------------------
+        def qp(k=DISPATCH):
+            return search_query_parallel(ivf.search_qadc, index, queries[128], mesh=mesh, r=R,
+                                         ma=MA, keep=KEEP, kernels=k)
+
+        res, seen = run("sharded_query_parallel", qp)
+        name = "query_parallel ivf b=128"
+        hold(name, 128, res, qp(PLAIN), ivf_single(128))
+        _, ol = oracle(torch, index, queries[128], code_view, unpack_codes, ivf)
+        oracle_top1(name, res[1], ol)
+        out[name]["profiled_launches"] = seen
+        measure(name, "sharded_query_parallel", 128, qp, lambda: ivf_single(128))
+        del ivf_s, fs
+
+        # -- the Deep100M geometry, drawn on the card --------------------------
+        gen = torch.Generator(device=device).manual_seed(0)
+        part_real = DEEP_N // DEEP_PARTS
+        part_pad = -(-part_real // 512) * 512
+        t0 = time.perf_counter()
+        deep = ivf.IVFIndex(
+            pq=ProductQuantizer(centroids=torch.randn((DEEP_M, 16, DEEP_DIM // DEEP_M),
+                                                      generator=gen, device=device), sq_bits=4),
+            coarse_centroids=torch.randn((DEEP_PARTS, DEEP_DIM), generator=gen, device=device),
+            codes=torch.randint(0, 256, (DEEP_PARTS, part_pad * DEEP_M // 2 // 128, 128),
+                                generator=gen, device=device, dtype=torch.uint8),
+            labels=(torch.arange(DEEP_PARTS, dtype=torch.int32, device=device)[:, None] * part_pad
+                    + torch.arange(part_pad, dtype=torch.int32, device=device)[None, :]),
+            part_sizes=torch.full((DEEP_PARTS,), part_real, dtype=torch.int32, device=device),
+            n=DEEP_PARTS * part_real, max_part_size=part_real)
+        qd = torch.randn((max(DEEP_BATCHES), DEEP_DIM), generator=gen, device=device)
+        torch.cuda.synchronize()
+        print(f"deep100m: IVF-{DEEP_PARTS} dim {DEEP_DIM} {DEEP_M}x4, part_real {part_real} "
+              f"part_pad {part_pad}, {deep.n} codes: codes {deep.codes.numel() / 1e6:.1f} MB, "
+              f"labels {deep.labels.numel() * 4 / 1e6:.1f} MB, drawn in "
+              f"{time.perf_counter() - t0:.2f} s; {SHARDS} shards of "
+              f"{DEEP_PARTS // SHARDS} partitions", flush=True)
+        deep_s = shard_ivf_partitions(deep, mesh)
+
+        def deep_search(b):
+            return search_qadc_ivf_sharded(deep_s, qd[:b], r=R, ma=MA, keep=KEEP, mesh=mesh)
+
+        def deep_single(b):
+            return ivf.search_qadc(deep, qd[:b], r=R, ma=MA, keep=KEEP, grouped=True,
+                                   direct=False)
+
+        res, seen = run("sharded_deep100m", lambda: {b: deep_search(b) for b in DEEP_BATCHES})
+        _, ol = oracle(torch, deep, qd[:DEEP_ORACLE_NQ], code_view, unpack_codes, ivf)
+        for b, (d, lab) in res.items():
+            name = f"deep100m b={b}"
+            check(d.shape == (b, R) and bool(torch.isfinite(d).all())
+                  and bool((d[:, 1:] >= d[:, :-1]).all()), f"{name}: shape, finite, order")
+            single = deep_single(b)
+            top1 = bool(torch.equal(lab[:, 0], single[1][:, 0]))
+            check(top1, f"{name}: top-1 differs from the unsharded grouped search")
+            out[name] = {"single_top1_equal": top1,
+                         "recall_at_100_vs_single": overlap(lab, single[1]) / R,
+                         "profiled_launches": seen}
+            oracle_top1(name, lab[:DEEP_ORACLE_NQ], ol)
+            print(f"search {name}: top-1 equals the unsharded grouped search; recall@{R} "
+                  f"against it {out[name]['recall_at_100_vs_single']}; oracle top-1 recall "
+                  f"over {DEEP_ORACLE_NQ} queries {out[name]['oracle_top1_recall']}", flush=True)
+            measure(name, "sharded_deep100m", b, lambda: deep_search(b), lambda: deep_single(b))
+        del deep, deep_s, res, single, qd
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"sharded": out, "card": card}), flush=True)
 
 
 def oracle(torch, index, queries, code_view, unpack_codes, ivf):

@@ -44,11 +44,7 @@ from qadc_tpu_torch.kernels.lut_scan import (
     flat8_members,
 )
 from qadc_tpu_torch.kernels.scan_ref import adc_scan_f32, scan_topk_f32, scan_topk_int8
-from qadc_tpu_torch.ops.quantization import (
-    clamp_bound_to_max_distance,
-    keep_prefix_bound,
-    quantize_tables_int8,
-)
+from qadc_tpu_torch.ops.quantization import int8_tables, keep_prefix_bound
 from qadc_tpu_torch.ops.tables import adc_tables
 from qadc_tpu_torch.ops.topk import (exact_screen_smallest, exact_tile_screen, merge_topk,
                                      topk_smallest)
@@ -153,25 +149,27 @@ def _quantized_tables(index: FlatIndex, queries, r: int, keep: float, kernels: K
     the compact tables of the rerank).
     """
     tables = adc_tables(index.pq.rotate(queries), index.pq.centroids)
-    q = tables.shape[0]
-    cpr = index.cpr
-    dev = index.device
     tiles = ivf.tile_tables_rows(tables)
     ps = min(_prefix_size(index.n or index.n_pad, keep), index.n_pad)
-    rows = -(-ps // cpr)
-    if index.pq.code_size in (8, 16):
-        row_ids = torch.arange(rows, dtype=torch.int32, device=dev).repeat(q)
+    rows = -(-ps // index.cpr)
+    pd = prefix_distances(index.codes, 0, rows, tables, tiles, kernels)
+    valid = torch.arange(rows * index.cpr, device=index.device) < ps
+    return tables, int8_tables(tables, keep_prefix_bound(pd, r, valid[None, :])), tiles
+
+
+def prefix_distances(codes_rows, first: int, rows: int, tables, tiles, kernels: Kernels):
+    """(Q, rows * cpr) float distances of every query to the codes of
+    storage rows [first, first + rows): M2 (rows_adc) with one pair per
+    query where it takes the geometry (8- or 16-byte codes), the per-code
+    scan otherwise."""
+    q, m, _ = tables.shape
+    cb = m // 2
+    dev = codes_rows.device
+    if cb in (8, 16):
+        row_ids = torch.arange(first, first + rows, dtype=torch.int32, device=dev).repeat(q)
         pair_ids = torch.arange(q, dtype=torch.int32, device=dev).repeat_interleave(rows)
-        pd = kernels.rows_adc(index.codes, row_ids, pair_ids, *tiles).reshape(q, rows * cpr)
-    else:  # a geometry M2 does not take
-        pd = adc_scan_f32(index.codes[:rows].reshape(-1, index.pq.code_size), tables, 4)
-    valid = torch.arange(rows * cpr, device=dev) < ps
-    bound = keep_prefix_bound(pd, r, valid[None, :])
-    tables_nn = torch.clamp(tables, min=0.0)
-    bound = clamp_bound_to_max_distance(bound, tables_nn.amax(dim=-1).sum(dim=-1))
-    qmin = tables_nn.amin(dim=(-2, -1))
-    qtables = quantize_tables_int8(tables, bound[:, None, None], qmin[:, None, None])
-    return tables, qtables, tiles
+        return kernels.rows_adc(codes_rows, row_ids, pair_ids, *tiles).reshape(q, -1)
+    return adc_scan_f32(codes_rows[first:first + rows].reshape(-1, cb), tables, 4)
 
 
 def window_search_rows(codes_rows, labels_flat, size: int, vals, rank_tables, r: int,

@@ -52,11 +52,7 @@ from qadc_tpu_torch.kernels.lut_scan import (
 )
 from qadc_tpu_torch.ops.kmeans import balance_centroids, kmeans
 from qadc_tpu_torch.ops.knn import exact_knn
-from qadc_tpu_torch.ops.quantization import (
-    clamp_bound_to_max_distance,
-    keep_prefix_bound,
-    quantize_tables_int8,
-)
+from qadc_tpu_torch.ops.quantization import int8_tables, keep_prefix_bound
 from qadc_tpu_torch.ops.tables import adc_tables
 from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, topk_smallest
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer, decode_rows
@@ -220,36 +216,40 @@ def _quantized_tables(index: IVFIndex, queries, r: int, ma: int, keep: float,
     tables = adc_tables(rot, index.pq.centroids)
     m = index.pq.sq_count
     q = queries.shape[0]
-    qa = q * ma
-    dev = index.device
-    tlo, thi = tile_tables_rows(tables.reshape(qa, m, 16))
-
+    tiles = tile_tables_rows(tables.reshape(q * ma, m, 16))
     if bound_override is None:
-        sizes = index.part_sizes[parts.long()]
-        starts = torch.clamp((sizes.to(torch.float32) * keep).to(torch.int32), min=1)
-        starts = torch.where(sizes > 0, starts, 0)
-        cpr = index.cpr
-        ppr = -(-prefix_pad // cpr)                     # prefix rows per partition
-        rpp = index.codes.shape[1]
-        prow = (parts.reshape(qa, 1) * rpp
-                + torch.arange(ppr, dtype=torch.int32, device=dev)).reshape(qa * ppr)
-        pair_of_row = torch.arange(qa, dtype=torch.int32, device=dev).repeat_interleave(ppr)
-        pd = kernels.rows_adc(index.codes.reshape(-1, 128), prow, pair_of_row, tlo, thi)
-        pd = pd.reshape(q, ma, ppr * cpr)
-        col = torch.arange(ppr * cpr, dtype=torch.int32, device=dev)
-        valid = col[None, None, :] < starts[:, :, None]
+        pd, valid = prefix_distances(index.codes, parts, index.part_sizes[parts.long()], keep,
+                                     prefix_pad, tiles, kernels)
         bound = keep_prefix_bound(pd.reshape(q, -1), r, valid.reshape(q, -1))
     else:
-        bound = torch.as_tensor(bound_override, dtype=torch.float32, device=dev).reshape(q)
+        bound = torch.as_tensor(bound_override, dtype=torch.float32, device=index.device)
+    return parts, tables, int8_tables(tables, bound.reshape(q)), tiles
 
-    tables_nn = torch.clamp(tables, min=0.0)
-    max_possible = tables_nn.amax(dim=-1).sum(dim=-1).amax(dim=-1)
-    bound = clamp_bound_to_max_distance(bound, max_possible)
-    qmin = tables_nn.amin(dim=(-3, -2, -1))
-    qtables = quantize_tables_int8(
-        tables, bound[:, None, None, None], qmin[:, None, None, None]
-    )
-    return parts, tables, qtables, (tlo, thi)
+
+def prefix_distances(codes, parts, sizes, keep: float, prefix_pad: int, tiles,
+                     kernels: Kernels):
+    """Keep-prefix distances: the first prefix_pad codes of each probed
+    partition, scored by M2 (rows_adc) over their storage rows.
+
+    codes: (P, rpp, 128) storage; parts: (Q, ma) partitions of `codes`;
+    sizes: (Q, ma) their real sizes (0 leaves a pair out); tiles: the
+    pairs' compact tables. Returns (dists (Q, ma, cols), valid (Q, ma,
+    cols)): code j of a pair counts when j < max(1, size * keep), size > 0.
+    """
+    q, ma = parts.shape
+    qa = q * ma
+    dev = codes.device
+    rpp = codes.shape[1]
+    cpr = 128 // (tiles[0].shape[1] // 16)        # tiles are 16 * cb lanes wide
+    starts = torch.clamp((sizes.to(torch.float32) * keep).to(torch.int32), min=1)
+    starts = torch.where(sizes > 0, starts, 0)
+    ppr = -(-prefix_pad // cpr)                     # prefix rows per partition
+    prow = (parts.reshape(qa, 1) * rpp
+            + torch.arange(ppr, dtype=torch.int32, device=dev)).reshape(qa * ppr)
+    pair_of_row = torch.arange(qa, dtype=torch.int32, device=dev).repeat_interleave(ppr)
+    pd = kernels.rows_adc(codes.reshape(-1, 128), prow, pair_of_row, *tiles)
+    col = torch.arange(ppr * cpr, dtype=torch.int32, device=dev)
+    return pd.reshape(q, ma, ppr * cpr), col[None, None, :] < starts[:, :, None]
 
 
 # Largest probed-code volume (qa * part_pad) routed to the direct path, and

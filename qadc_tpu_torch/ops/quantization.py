@@ -32,6 +32,21 @@ def quantize_tables_int8(tables: torch.Tensor, qmax, qmin) -> torch.Tensor:
     return q.to(torch.int8)
 
 
+def int8_tables(tables: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
+    """QuantizerMAX int8 tables of per-query float tables (Q, ..., M, K)
+    under the per-query bound (Q,): a bound that is not finite becomes the
+    query's largest possible distance (over its probes), and qmin is the
+    smallest non-negative table entry of the query."""
+    tables_nn = torch.clamp(tables, min=0.0)
+    max_possible = tables_nn.amax(dim=-1).sum(dim=-1)
+    while max_possible.dim() > 1:
+        max_possible = max_possible.amax(dim=-1)
+    bound = clamp_bound_to_max_distance(bound, max_possible)
+    qmin = tables_nn.flatten(1).amin(dim=1)
+    shape = (-1,) + (1,) * (tables.dim() - 1)
+    return quantize_tables_int8(tables, bound.reshape(shape), qmin.reshape(shape))
+
+
 def keep_prefix_bound(prefix_dists: torch.Tensor, r: int, valid_mask=None):
     """R-th smallest of {+inf} U prefix distances (the reference's R-heap
     seeded with +inf, db_query_4.cpp:230-242). Returns (...,) float32."""

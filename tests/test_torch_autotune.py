@@ -18,6 +18,10 @@ from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.ops.knn import assign_nearest
 from qadc_tpu_torch.quantizers.pq import train_pq
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def built():

@@ -29,6 +29,10 @@ from qadc_tpu_torch.io.checkpoint import load_index
 from qadc_tpu_torch.io.vecs import load_vectors
 from qadc_tpu_torch.ops.knn import assign_nearest
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 CPU = ["--device", "cpu"]
 QADC_HEADER = "r,recall,ma,adc_type,keep,index_us,rotate_us,table_us,scan_us"
 ADC_HEADER = "r,recall,ma,adc_type,index_us,rotate_us,table_us,scan_us"

@@ -30,6 +30,10 @@ from qadc_tpu_torch.kernels import lut_scan, scan_lab
 from test_torch_grouped_slot_minor import LIVE_COUNTS, groups_with_live_counts, scatter_slots
 from test_torch_rows_adc_tiles import ID_CASES, id_list_inputs
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():

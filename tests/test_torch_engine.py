@@ -33,6 +33,10 @@ from qadc_tpu_torch.eval.trace import annotate, timed, trace
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.io.checkpoint import load_index
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 N, DIM, NQ = 5000, 32, 21
 

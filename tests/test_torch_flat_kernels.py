@@ -38,6 +38,10 @@ import torch
 from qadc_tpu.kernels import lut_scan as jls
 from qadc_tpu_torch.kernels import lut_scan
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 N_PAD, N, Q = 4096, 3997, 40
 
 

@@ -21,6 +21,10 @@ import torch
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.kernels import lut_scan, scan_lab
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 # Live-slot counts of a group the tests cover: 1 to 3 as at IVF-256, ma=24,
 # b=32; 12 as at b=128; the edges of a 4-slot width and of a 32-slot pass;
 # a whole group of 128 (a hot partition).

@@ -25,6 +25,10 @@ from qadc_tpu_torch.io.stream import VectorStream
 from qadc_tpu_torch.quantizers.opq import OPQQuantizer, train_opq
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer, encode_indices
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 KINDS = [(".fvecs", np.float32), (".ivecs", np.int32), (".bvecs", np.uint8)]
 

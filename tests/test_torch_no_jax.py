@@ -8,6 +8,11 @@ import ast
 from pathlib import Path
 
 import pytest
+import torch
+
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
 
 PORT = Path(__file__).resolve().parents[1] / "qadc_tpu_torch"
 MODULES = sorted(PORT.rglob("*.py"))
@@ -32,7 +37,8 @@ def test_port_has_the_mirrored_modules():
                 "ops/kmeans.py", "index/build.py", "kernels/build.py", "kernels/scan_lab.py",
                 "io/vecs.py", "io/native.py", "io/stream.py", "io/quantizer_files.py",
                 "eval/metrics.py", "eval/trace.py", "engine.py", "autotune.py", "serve.py",
-                "cli/main.py"):
+                "cli/main.py", "dist/__init__.py", "dist/mesh.py", "dist/sharded.py",
+                "dist/sharded_ivf.py"):
         assert rel in names, rel
 
 
@@ -46,4 +52,10 @@ def test_module_imports_no_jax(path):
 def test_chip_smoke_imports_no_jax():
     path = PORT.parent / "chip_smoke.py"
     for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, name
+
+
+def test_multiproc_worker_imports_no_jax():
+    """The worker of tests/test_torch_multiprocess.py runs the port alone."""
+    for name in _imports(PORT.parent / "tests" / "torch_multiproc_worker.py"):
         assert name.split(".")[0] not in FORBIDDEN, name

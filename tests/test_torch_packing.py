@@ -11,6 +11,10 @@ from qadc_tpu.core import layout as jlayout
 from qadc_tpu.core import packing as jpacking
 from qadc_tpu_torch.core import layout, packing
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("m", [2, 16, 32])
 def test_pack_codes_matches_reference(m):

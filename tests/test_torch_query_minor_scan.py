@@ -20,6 +20,10 @@ import torch
 
 from qadc_tpu_torch.kernels import lut_scan, scan_lab
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 BATCHES = [1, 31, 32, 33, 128]
 
 

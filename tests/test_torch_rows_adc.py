@@ -21,6 +21,10 @@ from qadc_tpu.index import ivf as jivf
 from qadc_tpu_torch.kernels import lut_scan
 from test_torch_rows_adc_tiles import ID_CASES, id_list_inputs
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 
 def _inputs(cb, a, seed=0):
     g = np.random.default_rng(seed)

@@ -18,6 +18,10 @@ import torch
 
 from qadc_tpu_torch.kernels import lut_scan
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 R_ROWS, PAIRS = 97, 40
 TILE = lut_scan.ROWS_ADC_TILE
 

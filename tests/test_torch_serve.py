@@ -1,7 +1,9 @@
 """The port's SearchServer (qadc_tpu_torch/serve.py) on the CPU: the cases of
-tests/test_serve.py less the two sharded ones (which wait for the port's
-distributed slice), on a flat 16x4 index of 5,000 x 32 vectors (numpy
-seed 4) trained by the port.
+tests/test_serve.py, on a flat 16x4 index of 5,000 x 32 vectors (numpy
+seed 4) trained by the port; the two sharded cases serve the port's
+partition-sharded IVF search (dist/sharded_ivf.py) over IVF 16x4 indexes
+of 4,000 x 32 vectors (numpy seeds 5 and 6) trained by the port, on 8 and
+4 local shards.
 
 Every answer is held to the port's search of the same queries: labels
 exact, distances rtol 1e-6 (the server's batch has another shape than the
@@ -11,14 +13,24 @@ have timeouts.
 
 import threading
 import time
+from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
-from qadc_tpu_torch.index import flat
+from qadc_tpu_torch.dist.mesh import make_mesh
+from qadc_tpu_torch.dist.sharded_ivf import (load_sharded_index, search_qadc_ivf_sharded,
+                                             shard_ivf_partitions)
+from qadc_tpu_torch.index import flat, ivf
+from qadc_tpu_torch.io.checkpoint import save_index_sharded
+from qadc_tpu_torch.ops.knn import assign_nearest
 from qadc_tpu_torch.quantizers.pq import train_pq
 from qadc_tpu_torch.serve import SearchServer
+
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
 
 TIMEOUT = 60
 RTOL = 1e-6
@@ -171,3 +183,48 @@ def test_serve_collects_next_batch_while_executing(built):
         assert first.result(timeout=TIMEOUT)[1][0] == 0
         for i, f in enumerate(later):
             assert f.result(timeout=TIMEOUT)[1][0] == i + 1
+
+
+def _ivf_index(seed: int, parts: int):
+    """An IVF 16x4 index of 4,000 x 32 normal vectors, trained by the port."""
+    base = np.random.default_rng(seed).normal(size=(4000, 32)).astype(np.float32)
+    coarse = ivf.train_coarse(1, base, parts, iters=5, device="cpu")
+    a = assign_nearest(torch.from_numpy(base), coarse).long()
+    pq = train_pq(2, torch.from_numpy(base) - coarse[a], 16, 4, iters=5)
+    return ivf.add(ivf.IVFIndex.create(pq, coarse), base), base
+
+
+def test_serve_sharded_search_fn():
+    """SearchServer over a partition-sharded IVF index through search_fn:
+    the sharded search under the batching worker."""
+    index, base = _ivf_index(5, 16)
+    mesh = make_mesh(8, device="cpu")
+    sharded = shard_ivf_partitions(index, mesh)
+    fn = partial(search_qadc_ivf_sharded, r=20, ma=4, keep=0.05, mesh=mesh)
+    queries = base[:6] + 0.01
+    with SearchServer(sharded, batch_size=8, max_wait_ms=20,
+                      search_fn=lambda idx, b: fn(idx, b)) as srv:
+        results = [f.result(timeout=TIMEOUT) for f in [srv.submit(q) for q in queries]]
+    _, l_ref = fn(sharded, queries)
+    for i, (_, lab) in enumerate(results):
+        np.testing.assert_array_equal(lab, l_ref[i].numpy())
+
+
+def test_serve_restart_from_sharded_checkpoint(tmp_path):
+    """Stop a server, start a new one over the sharded checkpoint saved
+    while serving (loaded shard by shard): the same answers."""
+    index, base = _ivf_index(6, 8)
+    mesh = make_mesh(4, device="cpu")
+    fn = partial(search_qadc_ivf_sharded, r=10, ma=4, keep=0.05, mesh=mesh)
+    queries = base[:5] + 0.01
+    with SearchServer(shard_ivf_partitions(index, mesh), batch_size=4, max_wait_ms=10,
+                      search_fn=lambda idx, b: fn(idx, b)) as srv:
+        before = [srv.submit(q).result(timeout=TIMEOUT) for q in queries]
+        save_index_sharded(str(tmp_path / "ck"), index, num_shards=1)
+    restored = load_sharded_index(str(tmp_path / "ck"), mesh)
+    with SearchServer(restored, batch_size=4, max_wait_ms=10,
+                      search_fn=lambda idx, b: fn(idx, b)) as srv2:
+        after = [srv2.submit(q).result(timeout=TIMEOUT) for q in queries]
+    for (d0, l0), (d1, l1) in zip(before, after):
+        np.testing.assert_array_equal(l0, l1)
+        np.testing.assert_allclose(d0, d1, rtol=RTOL)

@@ -13,6 +13,10 @@ import torch
 from qadc_tpu_torch.core import tensors
 from qadc_tpu_torch.kernels import build
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 THREADS, ROUNDS, TIMEOUT = 4, 300, 60
 
 

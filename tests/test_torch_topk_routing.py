@@ -14,6 +14,10 @@ from qadc_tpu.ops import topk as jtopk
 from qadc_tpu_torch.index.routing import group_capacity, route_queries
 from qadc_tpu_torch.ops import topk
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("q,ma,p,g", [(1, 24, 256, 128), (32, 6, 16, 4),
                                       (50, 3, 7, 8), (5, 1, 64, 2)])

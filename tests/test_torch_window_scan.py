@@ -33,6 +33,10 @@ import torch
 from qadc_tpu.kernels import lut_scan as jls
 from qadc_tpu_torch.kernels import lut_scan
 
+# The suite runs in several worker processes on shared cores; one PyTorch
+# thread per worker keeps each from crowding the others.
+torch.set_num_threads(1)
+
 N_PAD, Q = 4096, 5
 # (cb, block_n, window)
 SHAPES = [(8, 1024, 16), (8, 512, 8), (16, 512, 8), (16, 1024, 16)]
