@@ -71,13 +71,23 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      each other, to the plain version and to their tile walk bit for bit,
      and to flat_scan at W = cpr, at (block 1024, W 16) min-only,
      transposed and with argmin ids (also at b=32: a partial group of
-     queries), and at (block 512, W 8); with float
-     tables (the lookup kernel); flat_scan_window_regs against
-     flat_scan_window, exact; lut_scan_topk_int8 r=100 against the exact
-     scan and the screen of the arm's windows; the same over a 32x4 index
-     (W 16 != cpr 8), and the scans' device times side by side;
+     queries), and at (block 512, W 8); with float tables the query-minor
+     kernel and the lookup kernel it replaced (flat_scan_window_f32_lookup)
+     in turns at (1024, 16), (512, 8) and 32x4 (1024, 16), b=128, and at
+     b=16 (below lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES: the lookup
+     kernel), held to each other, to the plain version and to the query-minor walk bit for
+     bit (minima, transposed minima, ids) and to float flat_scan with rows
+     at W = cpr; kernel 10, flat_scan_window_regs (four lookups a byte
+     permute) and the kernel it replaced (flat_scan_window_regs_single) at
+     those shapes and at 32x4 (block 8, W 2: 4 windows a block), held to
+     flat_scan_window and each other bit for bit, with the instructions a
+     lookup of each compiled loop (cuobjdump) and the ceilings, a model,
+     that they set (the `window ceilings` line);
+     lut_scan_topk_int8 r=100 against the exact scan and the screen of the
+     arm's windows; the same over a 32x4 index (W 16 != cpr 8), and the
+     scans' device times side by side (the `window A/B` line);
   6. the scan lab (qadc_tpu_torch/kernels/scan_lab.py) over the same trained
-     codes at b=128: the five engines of one scan equal bit for bit, every
+     codes at b=128: the six engines of one scan equal bit for bit, every
      lab mode launched and timed, the exactness probe (0 mismatches
      required) and the float32 selector sum against float64 (1e-6); the
      query-minor scans at every chunk of queries and with parts removed, and
@@ -156,6 +166,9 @@ PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
 # M2/M3 float sums: rtol 1e-6, atol 1e-5 * max|plain| (same sum order, but
 # the compiler may round differently); M1 int32: exact.
 RTOL, ATOL_REL = 1e-6, 1e-5
+# What an SM does a clock, for the lookup kernels' ceilings: shared-memory
+# bytes (a float lookup reads 4), integer-pipe lanes (the register engine).
+SMEM_BYTES_PER_CLOCK, INT_LANES_PER_CLOCK = 128, 64
 SEARCH_RTOL = 1e-5       # distances of a search vs its plain twin / the oracle
 MIN_ORACLE_RECALL = 0.95  # grouped path: oracle top-1 found in the top-100
 ADC16_RTOL = 1e-4        # 16-bit: float32 GEMM distances vs the float64 oracle
@@ -197,19 +210,22 @@ PATH_KERNELS = {
     "autotune": ("grouped_scan", "rows_adc"),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
                  "flat_scan_window", "flat_scan_window_lookup", "flat_scan_window_regs",
-                 "flat_scan_f32_lookup",
+                 "flat_scan_window_regs_single", "flat_scan_f32_lookup",
                  "flat_scan8_lookup", "empty_kernel"),
 }
 # The replaced kernels are A/B instruments: no search path may launch them.
 LOOKUP_ONLY = ("grouped_scan_lookup", "grouped_scan_f32_lookup", "grouped_scan8_lookup",
                "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup", "rows_adc_cached",
-               "direct_scan_blocks", "flat_scan_window_lookup")
+               "direct_scan_blocks", "flat_scan_window_lookup", "flat_scan_window_f32_lookup",
+               "flat_scan_window_regs_single")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
            "grouped_scan_f32_lookup": "adc4", "grouped_scan8_lookup": "adc8",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
            "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
            "flat_scan_window_f32": "window_scan", "flat_scan_window_lookup": "window_scan",
+           "flat_scan_window_f32_lookup": "window_scan",
+           "flat_scan_window_regs_single": "window_scan",
            "flat_scan_lookup": "flat_qadc", "flat_scan_f32_lookup": "flat_adc4",
            "flat_scan8_lookup": "flat_adc8", "scan_lab": "scan_lab", "selector_sum": "scan_lab",
            "empty_kernel": "scan_lab"}
@@ -262,6 +278,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def time_ms(torch, fn, reps: int = REPS) -> tuple[float, float]:
@@ -1143,14 +1168,15 @@ def main() -> int:
               "flat_scan_window argmin ids differ")
         return 0.0
 
-    def window_f32(got, want):
-        return inf_float_err(torch, got[0], want[0], "flat_scan_window float minima")
+    def regs_exact(got, want):
+        check(torch.equal(got, want), "flat_scan_window_regs differs from its plain version")
+        return 0.0
 
     # The int8 window scan on the tensor cores (the warpgroup kernel, at
     # b=128 and at b=32, where a group of 128 queries is partly masked) and
     # the lookup kernel it replaced (flat_scan_window_lookup) in turns,
     # held to each other, to the plain version and to the tile walk bit for
-    # bit; at W = cpr also to flat_scan. Float tables stay on the lookup kernel.
+    # bit; at W = cpr also to flat_scan.
     window_src = "qadc_tpu_torch/csrc/flat_scan_window.cu"
     for tag, ix, tab, bn, w, kw, replaces in (
         ("b1024 w16", fw, wqt, 1024, 16, {}, 281),
@@ -1183,33 +1209,121 @@ def main() -> int:
                          lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
                          lambda args=args, kw=kw: lut_scan.flat_scan_window_plain(*args, **kw),
                          window_exact, *flat_work(ix.codes, tab, ix.n), reps=reps)
-    kernel_phase("flat_scan_window_f32[b1024 w16]", "flat_scan_window_kernel", window_src,
-                 "qadc_tpu/kernels/lut_scan.py:281",
-                 lambda: lut_scan.flat_scan_window(fw.codes, wft, fw.n, 1024, 16),
-                 lambda: lut_scan.flat_scan_window_plain(fw.codes, wft, fw.n, 1024, 16),
-                 window_f32, *flat_work(fw.codes, wft, fw.n), reps=ARM_REPS)
-    window_ab = {k[len("flat_scan_window"):]: (v["ms"], kernels["flat_scan_window_lookup"
-                                                                + k[len("flat_scan_window"):]]["ms"])
-                 for k, v in kernels.items() if k.split("[")[0] == "flat_scan_window"}
-    print("window A/B, device ms tensor cores / arm: " + "; ".join(
-        f"{k} {new:.4f} / {arm:.4f}" for k, (new, arm) in window_ab.items()) + f" [{card}]",
-        flush=True)
+    # The float32 window scan: the query-minor kernel (from
+    # WINDOW_QUERY_MINOR_MIN_QUERIES queries on; at b=16 the wrapper runs the
+    # lookup kernel itself) and the lookup kernel it replaced
+    # (flat_scan_window_f32_lookup), in turns, held to each other, to the
+    # plain version and to the query-minor walk bit for bit (minima,
+    # transposed minima, ids); at W = cpr also to float flat_scan with rows.
+    # Ceiling: 2*CB float lookups a (query, real code), 4 bytes each,
+    # against SMEM_BYTES_PER_CLOCK on every SM at the maximum clock.
+    qm_window_src = "qadc_tpu_torch/csrc/flat_scan_window_qm.cu"
+    perm4_src = "qadc_tpu_torch/csrc/flat_scan_window_perm4.cu"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    wft32 = ivf.adc_tables(tq128, fw32.pq.centroids)
+    ceiling_ms, ceiling_loop = {}, {}
+    for tag, ix, tab, bn, w in (("b1024 w16", fw, wft, 1024, 16), ("b512 w8", fw, wft, 512, 8),
+                                ("32x4 b1024 w16", fw32, wft32, 1024, 16),
+                                ("b=16 b1024 w16", fw, wft[:16].contiguous(), 1024, 16)):
+        args = (ix.codes, tab, ix.n, bn, w)
+        for kw in ({}, {"with_rows": True}, {"transpose_out": True}):
+            got = lut_scan.flat_scan_window(*args, **kw)
+            for what, other in (
+                    ("its arm", lut_scan.flat_scan_window_f32_lookup(*args, **kw)),
+                    ("its plain version", lut_scan.flat_scan_window_plain(*args, **kw)),
+                    ("its walk", lut_scan.flat_scan_window_query_minor_plain(*args, **kw))):
+                check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, other)),
+                      f"flat_scan_window_f32[{tag}] {kw} differs from {what}")
+            if w == 128 // (tab.shape[1] // 2) and kw.get("with_rows"):
+                rows = lut_scan.flat_scan(ix.codes, tab, ix.n, True)
+                check(torch.equal(got[0].T, rows[0]) and torch.equal(got[1].T, rows[1]),
+                      f"flat_scan_window_f32[{tag}] differs from flat_scan at W = cpr")
+            del got, other
+        qm = tab.shape[0] >= lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES
+        lookups = tab.shape[0] * ix.n * tab.shape[1]
+        for base, fn, cu_name, src in (
+            ("flat_scan_window_f32", lut_scan.flat_scan_window,
+             "flat_scan_window_qm_kernel" if qm else "flat_scan_window_kernel",
+             qm_window_src if qm else window_src),
+            ("flat_scan_window_f32_lookup", lut_scan.flat_scan_window_f32_lookup,
+             "flat_scan_window_kernel", window_src),
+        ):
+            kernel_phase(f"{base}[{tag}]", cu_name, src, "qadc_tpu/kernels/lut_scan.py:281",
+                         lambda fn=fn, args=args: fn(*args),
+                         lambda args=args: lut_scan.flat_scan_window_plain(*args),
+                         window_exact, *flat_work(ix.codes, tab, ix.n), reps=ARM_REPS)
+        ceiling_ms[f"flat_scan_window_f32[{tag}]"] = (
+            lookups * 4 / (SMEM_BYTES_PER_CLOCK * sms * clock_hz) * 1e3)
 
-    def regs_exact(got, want):
-        check(torch.equal(got, want), "flat_scan_window_regs differs from flat_scan_window")
-        return 0.0
+    # Kernel 10: the four-lookup register engine and the kernel it replaced,
+    # in turns, held to flat_scan_window and to each other bit for bit, at
+    # the window scans' shapes and at 32x4 (block 8, W 2): 4 windows a block.
+    # Its ceiling, a model: the integer-pipe instructions a lookup of the
+    # compiled loop that the shape's G runs (cuobjdump; the fold loop for G =
+    # 1, 2, 4, the eight-windows loop, nested in the walk over window groups,
+    # otherwise) times the lookups, against INT_LANES_PER_CLOCK on every SM.
+    sass = scan_lab.sass_loop_ops(lib_path, "flat_scan_window_perm4_kernel", 16)
+    check(set(sass) == {8, 16} and all(any(loop["nested"] == nested for loop in loops)
+                                       for loops in sass.values() for nested in (False, True)),
+          "sass of flat_scan_window_perm4_kernel: no fold loop or no eight-windows loop")
 
+    def hot_loop(cb: int, groups: int) -> dict:
+        nested = groups not in (1, 2, 4)
+        return min((loop for loop in sass[cb] if loop["nested"] == nested),
+                   key=lambda loop: loop["alu_per_lookup"])
+
+    for cb, loops in sass.items():
+        for c in loops:
+            print(f"sass flat_scan_window_regs CB={cb} "
+                  f"{'eight-windows' if c['nested'] else 'fold'} loop at {c['start']:#x}: "
+                  f"{c['lookups']} lookups, {c['alu']} integer-pipe ({c['alu_per_lookup']:.3f} a "
+                  f"lookup), {c['fma']} FMA-pipe ({c['fma_per_lookup']:.3f}), {c['other']} other; "
+                  f"opcodes {c['ops']}", flush=True)
     for tag, ix, tab, bn, w in (("b1024 w16", fw, wqt, 1024, 16), ("b512 w8", fw, wqt, 512, 8),
-                                ("32x4 b1024 w16", fw32, wqt32, 1024, 16)):
-        # Held to kernel (a), exact; its plain version is (a)'s.
-        check(torch.equal(lut_scan.flat_scan_window_regs(ix.codes, tab, ix.n, bn, w),
-                          lut_scan.flat_scan_window(ix.codes, tab, ix.n, bn, w)[0]),
-              f"flat_scan_window_regs[{tag}] differs from flat_scan_window")
-        kernel_phase(f"flat_scan_window_regs[{tag}]", "flat_scan_window_regs_kernel", window_src,
-                     "qadc_tpu/kernels/lut_scan.py:631",
-                     lambda: lut_scan.flat_scan_window_regs(ix.codes, tab, ix.n, bn, w),
-                     lambda: lut_scan.flat_scan_window_plain(ix.codes, tab, ix.n, bn, w)[0],
-                     regs_exact, *flat_work(ix.codes, tab, ix.n))
+                                ("32x4 b1024 w16", fw32, wqt32, 1024, 16),
+                                ("32x4 b8 w2", fw32, wqt32, 8, 2)):
+        args = (ix.codes, tab, ix.n, bn, w)
+        got = lut_scan.flat_scan_window_regs(*args)
+        for what, other in (("flat_scan_window", lut_scan.flat_scan_window(*args)[0]),
+                            ("its arm", lut_scan.flat_scan_window_regs_single(*args))):
+            check(torch.equal(got, other), f"flat_scan_window_regs[{tag}] differs from {what}")
+        del got, other
+        cb = tab.shape[1] // 2
+        for base, fn, cu_name, src in (
+            ("flat_scan_window_regs", lut_scan.flat_scan_window_regs,
+             "flat_scan_window_perm4_kernel", perm4_src),
+            ("flat_scan_window_regs_single", lut_scan.flat_scan_window_regs_single,
+             "flat_scan_window_regs_kernel", window_src),
+        ):
+            kernel_phase(f"{base}[{tag}]", cu_name, src, "qadc_tpu/kernels/lut_scan.py:631",
+                         lambda fn=fn, args=args: fn(*args),
+                         lambda args=args: lut_scan.flat_scan_window_plain(*args)[0],
+                         regs_exact, *flat_work(ix.codes, tab, ix.n), reps=ARM_REPS)
+        loop = hot_loop(cb, bn // w)
+        ceiling_ms[f"flat_scan_window_regs[{tag}]"] = (
+            tab.shape[0] * ix.n * tab.shape[1] * loop["alu_per_lookup"]
+            / (INT_LANES_PER_CLOCK * sms * clock_hz) * 1e3)
+        ceiling_loop[f"flat_scan_window_regs[{tag}]"] = (
+            f", {'eight-windows' if loop['nested'] else 'fold'} loop at {loop['start']:#x}")
+    arm_of = {"flat_scan_window": "flat_scan_window_lookup",
+              "flat_scan_window_f32": "flat_scan_window_f32_lookup",
+              "flat_scan_window_regs": "flat_scan_window_regs_single"}
+    for name, k in kernels.items():
+        base, _, rest = name.partition("[")
+        if base in arm_of:
+            k["arm_ms"] = kernels[f"{arm_of[base]}[{rest}"]["ms"]
+    window_ab = {name: (k["ms"], k["arm_ms"]) for name, k in kernels.items() if "arm_ms" in k}
+    print("window A/B, device ms new / arm: " + "; ".join(
+        f"{k} {new:.5f} / {arm:.5f}" for k, (new, arm) in window_ab.items()) + f" [{card}]",
+        flush=True)
+    print("window ceilings, ms (a model, not measured: float lookups at "
+          f"{SMEM_BYTES_PER_CLOCK} shared-memory bytes a clock, the register engine's "
+          f"integer-pipe instructions at {INT_LANES_PER_CLOCK} lanes a clock; "
+          f"{sms} SMs at {clock_hz / 1e6:.0f} MHz): " + "; ".join(
+        f"{k} {v:.5f} (device {kernels[k]['ms']:.5f}, bound {kernels[k]['bound_ms']:.5f}"
+        f"{ceiling_loop.get(k, '')})"
+        for k, v in ceiling_ms.items()) + f" [{card}]", flush=True)
 
     # The window-scan path: 8w (kernel 8 with ids, any window, then the
     # screen) and kernel 10's counterpart, counts reset before and read after.
@@ -1331,7 +1445,9 @@ def main() -> int:
           f"{kernels['scan_lab[full]']['ms']:.4f}; flat_scan_lookup {ab_ms['flat_scan_lookup']:.4f}; "
           f"flat_scan_window (block 1024, W 16, transposed; wgmma) {ab_ms['flat_scan_window']:.4f}; "
           f"flat_scan_window_lookup {ab_ms['flat_scan_window_lookup']:.4f}; "
-          f"flat_scan_window_regs {ab_ms['flat_scan_window_regs']:.4f} [{card}]", flush=True)
+          f"flat_scan_window_regs (four lookups a permute) {ab_ms['flat_scan_window_regs']:.4f}; "
+          f"flat_scan_window_regs_single {ab_ms['flat_scan_window_regs_single']:.4f} [{card}]",
+          flush=True)
     print(json.dumps({"scan_lab": {
         "shape": f"b={wqt.shape[0]} x {fw.n_pad} trained 16x4 codes", "ab_ms": ab_ms,
         "mode_ms": {mode: kernels[f"scan_lab[{mode}]"]["ms"] for mode in scan_lab.LAB_MODES},

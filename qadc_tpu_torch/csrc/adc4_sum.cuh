@@ -1,9 +1,10 @@
 // The 4-bit ADC sum of one code, shared by the 4-bit scans (grouped_scan.cu,
-// grouped_scan_sm.cu, flat_scan.cu, flat_scan_window.cu, flat_scan_qm.cuh) so
-// that the float sum order has a single definition: over code bytes b =
-// 0..CB-1, the even sub-quantizer's entry (low nibble), then
-// the odd one's (high nibble). That is rows_adc's order (rows_adc.cu), so a
-// float minimum of a scan is bit for bit the rerank's distance of its code.
+// grouped_scan_sm.cu, flat_scan.cu, flat_scan_window.cu, flat_scan_qm.cuh,
+// flat_scan_window_qm.cu) so that the float sum order has a single
+// definition: over code bytes b = 0..CB-1, the even sub-quantizer's entry
+// (low nibble), then the odd one's (high nibble). That is rows_adc's order
+// (rows_adc.cu), so a float minimum of a scan is bit for bit the rerank's
+// distance of its code.
 //
 // Tables are laid out [2*CB][16] (sub-quantizer, centroid), int8 entries in
 // [0, 127] summed in int32 with no 127 saturation (Quick ADC), or float32
@@ -148,6 +149,30 @@ __device__ __forceinline__ void adc4_sum_minor(const uint32_t (&w)[32], int c,
   }
 }
 
+// The same sum of one code held alone in CB / 4 words (the query-minor window
+// scan, flat_scan_window_qm.cu, reads one code a window rank).
+template <int CB, int QPL, int SHIFT>
+__device__ __forceinline__ void adc4_code_sum_minor(const uint32_t (&cw)[CB / 4],
+                                                    uint32_t lane_addr, float (&acc)[QPL]) {
+  constexpr uint32_t kSubq = 16u << SHIFT;
+#pragma unroll
+  for (int i = 0; i < QPL; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int b = 0; b < CB; ++b) {
+    const uint32_t word = cw[b >> 2];
+    const int bit = (b & 3) * 8;
+    float lo[QPL], hi[QPL];
+    LdsF32<QPL>::load((field_offset<SHIFT>(word, bit, 15u) | lane_addr) + (2 * b) * kSubq, lo);
+    LdsF32<QPL>::load((field_offset<SHIFT>(word, bit + 4, 15u) | lane_addr) + (2 * b + 1) * kSubq,
+                      hi);
+#pragma unroll
+    for (int i = 0; i < QPL; ++i) {
+      acc[i] += lo[i];  // even sub-quantizer: low nibble
+      acc[i] += hi[i];  // odd sub-quantizer: high nibble
+    }
+  }
+}
+
 // The same sum for up to 4 slots at once, their tables in shared memory as
 // [2][2*CB][16][2] float32 (slot pair, sub-quantizer, centroid, slot of the
 // pair) at a 32-bit address `tab` aligned to 128 bytes. A lookup is an
@@ -189,11 +214,15 @@ __device__ __forceinline__ void adc4_sum_slot_pairs(const uint32_t (&w)[32], int
   }
 }
 
+// log2 of the bytes of one entry's chunk of 32 * QPL float32 queries.
+template <int QPL>
+constexpr int kQueryMinorShift = QPL == 1 ? 7 : QPL == 2 ? 8 : 9;
+
 // The query-minor flat scan's sum: the minor axis is a chunk of 32 * QPL queries.
 template <int CB, int QPL>
 __device__ __forceinline__ void adc4_sum_query_minor(const uint32_t (&w)[32], int c,
                                                      uint32_t lane_addr, float (&acc)[QPL]) {
-  adc4_sum_minor<CB, QPL, QPL == 1 ? 7 : QPL == 2 ? 8 : 9>(w, c, lane_addr, acc);
+  adc4_sum_minor<CB, QPL, kQueryMinorShift<QPL>>(w, c, lane_addr, acc);
 }
 
 }  // namespace qadc

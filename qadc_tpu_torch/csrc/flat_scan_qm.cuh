@@ -65,6 +65,28 @@ struct FlatQm {
   }
 };
 
+// Transposes the (Q, 2*CB, 16) float32 tables of queries q0 .. q0 + nq - 1
+// into s_tab as [2*CB][16][32 * QPL], zeros past nq. A warp stores 32
+// queries at one vector: no bank conflict.
+template <int CB, int QPL>
+__device__ __forceinline__ void stage_query_minor(const float* __restrict__ tables, int q0,
+                                                  int nq, float* s_tab) {
+  constexpr int kChunk = FlatQm<CB, QPL>::kChunk;
+  constexpr int kVecs = FlatQm<CB, QPL>::kEntries / 4;  // 16-byte vectors of one query's table
+  const float4* src = reinterpret_cast<const float4*>(tables) + static_cast<size_t>(q0) * kVecs;
+  for (int i = threadIdx.x; i < kChunk * kVecs; i += blockDim.x) {
+    const int q = i % kChunk;
+    const int vec = i / kChunk;
+    const float4 v = q < nq ? src[static_cast<size_t>(q) * kVecs + vec]
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float* dst = s_tab + (vec * 4) * kChunk + q;
+    dst[0] = v.x;
+    dst[kChunk] = v.y;
+    dst[2 * kChunk] = v.z;
+    dst[3 * kChunk] = v.w;
+  }
+}
+
 template <int CB, int QPL, bool kWithRows, int MODE>
 __global__ void __launch_bounds__(kQmThreads, 1)
 flat_scan_qm_kernel(const uint8_t* __restrict__ codes,   // (R, 128)
@@ -75,7 +97,6 @@ flat_scan_qm_kernel(const uint8_t* __restrict__ codes,   // (R, 128)
   using G = FlatQm<CB, QPL>;
   constexpr int kChunk = G::kChunk;
   constexpr int kCpr = 128 / CB;
-  constexpr int kVecs = G::kEntries / 4;  // 16-byte vectors of one query's table
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t tab = (base + G::kAlign - 1) & ~(G::kAlign - 1);
@@ -85,18 +106,7 @@ flat_scan_qm_kernel(const uint8_t* __restrict__ codes,   // (R, 128)
 
   const int q0 = blockIdx.y * kChunk;
   const int nq = min(kChunk, q_count - q0);
-  const float4* src = reinterpret_cast<const float4*>(tables) + static_cast<size_t>(q0) * kVecs;
-  for (int i = threadIdx.x; i < kChunk * kVecs; i += kQmThreads) {
-    const int q = i % kChunk;  // a warp: 32 queries at one vector, stored without conflict
-    const int vec = i / kChunk;
-    const float4 v = q < nq ? src[static_cast<size_t>(q) * kVecs + vec]
-                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float* dst = s_tab + (vec * 4) * kChunk + q;
-    dst[0] = v.x;
-    dst[kChunk] = v.y;
-    dst[2 * kChunk] = v.z;
-    dst[3 * kChunk] = v.w;
-  }
+  stage_query_minor<CB, QPL>(tables, q0, nq, s_tab);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;

@@ -4,16 +4,20 @@
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_reduce in its whole
 // contract (any block_n dividing N_pad, any window dividing block_n; minima
 // only, transposed or not, or with the argmin's code id; int8 or float32
-// tables), and with it lut_scan_topk_int8, which screens its output. With
-// float32 tables flat_scan_window_kernel is the kernel of lut_scan.
-// flat_scan_window; with int8 tables the tensor-core kernel over
-// window-major columns took its place (scan_wgmma.cu; window_columns.cuh),
-// and its int8 instantiation stays as its A/B arm,
-// lut_scan.flat_scan_window_lookup. The reduce kernel's variants "int8",
-// "int8c" and "bf16" differ only in how the TPU's matrix unit builds the
-// one-hot pre-image of the codes; all three names run the same kernels here.
-// flat_scan_window_regs_kernel replaces lut_scan_vpu_reduce: the same int8
-// minima, bit for bit, by another engine, kept as an A/B instrument.
+// tables), and with it lut_scan_topk_int8, which screens its output. Both
+// engines here were replaced and stay as A/B arms: with int8 tables by the
+// tensor-core kernel over window-major columns (scan_wgmma.cu;
+// window_columns.cuh; arm lut_scan.flat_scan_window_lookup), with float32
+// tables by the query-minor kernel of flat_scan_window_qm.cu from
+// lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES queries on (below that
+// flat_scan_window_kernel still serves lut_scan.flat_scan_window; arm
+// lut_scan.flat_scan_window_f32_lookup). The reduce kernel's variants
+// "int8", "int8c" and "bf16" differ only in how the TPU's matrix unit
+// builds the one-hot pre-image of the codes; all three names run the same
+// kernels here. flat_scan_window_regs_kernel replaces lut_scan_vpu_reduce
+// (the same int8 minima, bit for bit, by another engine); the register
+// engine of flat_scan_window_perm4.cu took its place, and it stays as the
+// arm lut_scan.flat_scan_window_regs_single.
 //
 // Window membership is the JAX kernel's. A block of block_n codes is R =
 // block_n / cpr storage rows (cpr = 128 / CB codes a row); slot s = c*R + r
@@ -40,15 +44,14 @@
 //     windows of one query, so table reads never conflict. Transposed
 //     minima are written coalesced; the natural (windows, Q) layout is
 //     written with a stride of Q.
-//   flat_scan_window_regs_kernel: the engine of the Quick ADC paper. Each
-//     thread keeps one query's tables in registers (a 16-entry int8 table is
-//     four 32-bit registers: 64 registers at 16 sub-quantizers, 128 at 32)
-//     and looks a nibble up with two byte permutes over register pairs and a
-//     select on the nibble's top bit. A warp holds 32 queries and walks the
-//     block's windows; every lane reads the same code from shared memory (a
-//     broadcast), and writes to (windows, Q) are coalesced. The loops over
-//     sub-quantizers are fully unrolled, so no table register is indexed at
-//     run time.
+//   flat_scan_window_regs_kernel: each thread keeps one query's tables in
+//     registers (a 16-entry int8 table is four 32-bit registers: 64
+//     registers at 16 sub-quantizers, 128 at 32) and looks a nibble up with
+//     two byte permutes over register pairs and a select on the nibble's top
+//     bit. A warp holds 32 queries and walks the block's windows; every lane
+//     reads the same code from shared memory (a broadcast), and writes to
+//     (windows, Q) are coalesced. The loops over sub-quantizers are fully
+//     unrolled, so no table register is indexed at run time.
 // Neither uses the tensor cores or TMA.
 
 #include <climits>
@@ -295,10 +298,12 @@ extern "C" int qadc_flat_scan_window(const void* codes, const void* tables, void
                                        block_n, window, transpose_out, s);
 }
 
-// int8 tables, int32 minima (N_pad / window, Q).
-extern "C" int qadc_flat_scan_window_regs(const void* codes, const void* tables, void* out,
-                                          int n_pad, int q_count, int n, int block_n,
-                                          int window, int cb, void* stream) {
+// int8 tables, int32 minima (N_pad / window, Q): the arm of
+// flat_scan_window_perm4.cu's qadc_flat_scan_window_regs.
+extern "C" int qadc_flat_scan_window_regs_single(const void* codes, const void* tables,
+                                                 void* out, int n_pad, int q_count, int n,
+                                                 int block_n, int window, int cb,
+                                                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (!legal(n_pad, q_count, block_n, window, cb))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -53,6 +53,10 @@ SIGNATURES = {
     "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, n_pad, q_count, n, block_n, window, cb, stream
     "qadc_flat_scan_window_regs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "qadc_flat_scan_window_regs_single": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
+    # cb, chunk, transpose_out, stream
+    "qadc_flat_scan_window_qm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
     # cb, transpose_out, stream
     "qadc_flat_scan_window_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -43,11 +43,18 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          lut_scan_topk_int8) its screened top-r: int8
                          tables on the warpgroup product over window-major
                          columns (scan_wgmma.cu, at any batch), float32 on
-                         the lookup kernel of flat_scan_window.cu
-  flat_scan_window_lookup: the int8 window scan by that lookup kernel, kept
-                         for the A/B
+                         the query-minor kernel of flat_scan_window_qm.cu
+                         from WINDOW_QUERY_MINOR_MIN_QUERIES queries on, the
+                         lookup kernel of flat_scan_window.cu below
+  flat_scan_window_lookup, flat_scan_window_f32_lookup: the int8 and the
+                         float32 window scans by that lookup kernel at any
+                         batch, kept for the A/B
   flat_scan_window_regs (10) <- lut_scan_vpu_reduce: the same minima by
-                         another engine (tables in registers)
+                         another engine, tables in registers, four lookups
+                         a byte permute (flat_scan_window_perm4.cu)
+  flat_scan_window_regs_single: the same by the register kernel it replaced
+                         (flat_scan_window.cu, one lookup a nibble), kept for
+                         the A/B
 
 Each wrapper checks its arguments, then dispatches on the device of the
 tensors it was given: on the CPU it runs the plain PyTorch version beside
@@ -124,6 +131,16 @@ QUERY_MINOR_LEAST, QUERY_MINOR_LEAST8 = 32, 8
 # 0.555; 8-bit 3 queries 0.0173 / 0.0150, 4: 0.0175 / 0.0193, 32: 0.053 / 0.168.
 QUERY_MINOR_MIN_QUERIES = 20
 QUERY_MINOR_MIN_QUERIES8 = 4
+# Fewest queries at which flat_scan_window with float tables runs its
+# query-minor kernel (csrc/flat_scan_window_qm.cu). That kernel's time stays
+# flat up to 32 queries (a lane's queries are staged whatever their number),
+# the lookup kernel's grows with them. Measured (scripts/torch_scan_lab.py
+# window, 1M random codes, NVIDIA H100 80GB HBM3, 700.00 W), ms by
+# query-minor / lookup kernel at 1 / 24 / 26 / 28 / 30 / 32 queries: 16x4
+# (1024, 16) 0.1115 / 0.0097, 0.1125 / 0.0994, 0.1124 / 0.1086, 0.1125 /
+# 0.1157, 0.1124 / 0.1245, 0.1121 / 0.1351; (512, 8) the lookup kernel ahead
+# up to 28 (0.1198 / 0.1108), 32x4 (1024, 16) up to 24 (0.1834 / 0.1742).
+WINDOW_QUERY_MINOR_MIN_QUERIES = 28
 
 # Slots of a window, the slot-minor grouped scans' unit of work with a tile of
 # rows (csrc/grouped_slot_minor.cuh): a thread holds the window's 4 slots.
@@ -137,14 +154,17 @@ GROUPED_WINDOW_SLOTS = 4
 # slot-minor and query-minor ones replaced, rows_adc_cached M2 by the kernel
 # the staged one replaced, direct_scan_blocks M3 by the kernel the chunked
 # one replaced, flat_scan_window_f32 the window scan with float tables,
-# flat_scan_window_lookup its int8 scan by the kernel the tensor-core ones
-# replaced, scan_lab, selector_sum and empty_kernel the
-# instruments of kernels/scan_lab.py.
+# flat_scan_window_lookup and flat_scan_window_f32_lookup its int8 and float
+# scans by the kernel the tensor-core and query-minor ones replaced,
+# flat_scan_window_regs_single kernel 10 by the kernel the four-lookup one
+# replaced, scan_lab, selector_sum and empty_kernel the instruments of
+# kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
             "rows_adc": 0, "rows_adc_cached": 0, "direct_scan": 0, "direct_scan_blocks": 0,
             "flat_scan": 0, "flat_scan_f32": 0,
             "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_f32": 0,
-            "flat_scan_window_lookup": 0, "flat_scan_window_regs": 0,
+            "flat_scan_window_lookup": 0, "flat_scan_window_f32_lookup": 0,
+            "flat_scan_window_regs": 0, "flat_scan_window_regs_single": 0,
             "grouped_scan_lookup": 0, "grouped_scan_f32_lookup": 0,
             "grouped_scan8_lookup": 0, "flat_scan_lookup": 0,
             "flat_scan_f32_lookup": 0, "flat_scan8_lookup": 0, "scan_lab": 0,
@@ -1265,8 +1285,10 @@ def flat_scan_window(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
 
     With int8 tables it runs the warpgroup kernel over the window-major
     columns of window_column_codes (csrc/scan_wgmma.cu, at any batch: a
-    partial group of 128 queries is masked); with float32 tables the lookup
-    kernel of csrc/flat_scan_window.cu.
+    partial group of 128 queries is masked); with float32 tables the
+    query-minor kernel of csrc/flat_scan_window_qm.cu from
+    WINDOW_QUERY_MINOR_MIN_QUERIES queries on, the lookup kernel of
+    csrc/flat_scan_window.cu below.
     """
     f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
                                                 with_rows, transpose_out, variant)
@@ -1297,6 +1319,24 @@ def flat_scan_window_lookup(codes_rows, tables, n: int, block_n: int = DEFAULT_B
                                     with_rows, transpose_out, "flat_scan_window_lookup")
 
 
+def flat_scan_window_f32_lookup(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                                window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                                transpose_out: bool = False, variant: str = "int8"):
+    """flat_scan_window's float32 result by the lookup kernel the
+    query-minor one replaced (csrc/flat_scan_window.cu) at any batch: the
+    same arguments (float32 tables only) and the same minima and ids, bit for
+    bit. An A/B instrument: no search path calls it."""
+    f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
+                                                with_rows, transpose_out, variant)
+    if not f32:
+        raise TypeError(f"tables must be torch.float32, got {tables.dtype}")
+    if codes_rows.device.type == "cpu":
+        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
+                                      transpose_out)
+    return _launch_flat_scan_window(codes_rows, tables, n, n_pad, cb, block_n, window,
+                                    with_rows, transpose_out, "flat_scan_window_f32_lookup")
+
+
 def _check_flat_scan_window(codes_rows, tables, n, block_n, window, with_rows, transpose_out,
                             variant) -> tuple[bool, int, int, int]:
     """Argument checks of flat_scan_window. Returns (float32 tables, cb, n
@@ -1313,11 +1353,13 @@ def _launch_flat_scan_window(codes_rows, tables, n: int, n_pad: int, cb: int, bl
                              window: int, with_rows: bool, transpose_out: bool, kernel: str):
     """Launch a window scan on checked CUDA tensors. `kernel` is its key in
     `launches`: flat_scan_window runs the warpgroup kernel of scan_wgmma.cu,
-    flat_scan_window_f32 and flat_scan_window_lookup the lookup kernel of
+    flat_scan_window_f32 the query-minor kernel of flat_scan_window_qm.cu from
+    WINDOW_QUERY_MINOR_MIN_QUERIES queries on, and the others (and
+    flat_scan_window_f32 below that) the lookup kernel of
     flat_scan_window.cu."""
     dev = codes_rows.device
     _require_cuda(dev, codes_rows, tables)
-    f32 = kernel == "flat_scan_window_f32"
+    f32 = kernel in ("flat_scan_window_f32", "flat_scan_window_f32_lookup")
     q, c = tables.shape[0], n_pad // window
     out = torch.empty((q, c) if transpose_out else (c, q),
                       dtype=tables.dtype if f32 else torch.int32, device=dev)
@@ -1328,6 +1370,9 @@ def _launch_flat_scan_window(codes_rows, tables, n: int, n_pad: int, cb: int, bl
         if kernel == "flat_scan_window":
             _launch("qadc_flat_scan_window_wgmma", dev, *ptrs, n_pad, q, n, block_n, window, cb,
                     int(transpose_out))
+        elif kernel == "flat_scan_window_f32" and q >= WINDOW_QUERY_MINOR_MIN_QUERIES:
+            _launch("qadc_flat_scan_window_qm", dev, *ptrs, n_pad, q, n, block_n, window, cb,
+                    flat_scan_chunk(q, 2 * cb), int(transpose_out))
         else:
             _launch("qadc_flat_scan_window", dev, *ptrs, n_pad, q, n, block_n, window, cb,
                     int(f32), int(transpose_out))
@@ -1456,11 +1501,29 @@ def flat_scan_window_regs(codes_rows, tables, n: int, block_n: int = DEFAULT_BLO
                           window: int = DEFAULT_WINDOW):
     """flat_scan_window's min-only int8 result by another engine: the same
     arguments (int8 tables only) and the same (N_pad/W, Q) int32 minima, bit
-    for bit. Each thread keeps one query's tables in registers and looks a
-    nibble up with byte permutes, where flat_scan_window reads shared memory
-    (the counterpart of the JAX package's lut_scan_vpu_reduce: an A/B
-    instrument). Its plain version is flat_scan_window_plain.
+    for bit. Each thread keeps one query's tables in registers and looks up
+    four nibbles with three byte permutes, eight windows a lane, sums in
+    16-bit lanes (csrc/flat_scan_window_perm4.cu; its walk is
+    flat_scan_window_planes_plain), where flat_scan_window reads shared
+    memory or runs a product (the counterpart of the JAX package's
+    lut_scan_vpu_reduce: an A/B instrument). Its plain version is
+    flat_scan_window_plain.
     """
+    return _flat_scan_window_regs(codes_rows, tables, n, block_n, window,
+                                  "flat_scan_window_regs")
+
+
+def flat_scan_window_regs_single(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                                 window: int = DEFAULT_WINDOW):
+    """flat_scan_window_regs' result by the register kernel the four-lookup
+    one replaced (csrc/flat_scan_window.cu:flat_scan_window_regs_kernel: one
+    lookup a nibble, two permutes and a select): the same arguments and
+    minima, bit for bit. An A/B instrument."""
+    return _flat_scan_window_regs(codes_rows, tables, n, block_n, window,
+                                  "flat_scan_window_regs_single")
+
+
+def _flat_scan_window_regs(codes_rows, tables, n, block_n, window, kernel: str):
     cb, n, n_pad = _check_window_scan(codes_rows, tables, n, block_n, window, f32_ok=False)
     dev = codes_rows.device
     if dev.type == "cpu":
@@ -1469,10 +1532,203 @@ def flat_scan_window_regs(codes_rows, tables, n: int, block_n: int = DEFAULT_BLO
     q, c = tables.shape[0], n_pad // window
     out = torch.empty((c, q), dtype=torch.int32, device=dev)
     if q and c:
-        _launch("qadc_flat_scan_window_regs", dev, codes_rows.data_ptr(), tables.data_ptr(),
+        _launch(f"qadc_{kernel}", dev, codes_rows.data_ptr(), tables.data_ptr(),
                 out.data_ptr(), n_pad, q, n, block_n, window, cb)
-        launches["flat_scan_window_regs"] += 1
+        launches[kernel] += 1
     return out
+
+
+def flat_scan_window_query_minor_plain(codes_rows, tables, n: int,
+                                       block_n: int = DEFAULT_BLOCK_N,
+                                       window: int = DEFAULT_WINDOW, with_rows: bool = False,
+                                       transpose_out: bool = False):
+    """flat_scan_window's float32 function by the query-minor kernel's own
+    walk (csrc/flat_scan_window_qm.cu): the same arguments (float32 tables)
+    and result as flat_scan_window_plain, bit for bit.
+
+    The tables go query-minor in flat_scan_chunk's chunks; a chunk's queries
+    take each window's slots in rank order (window_slots, slots_to_rows),
+    each code's sum running over b = 0..cb-1, low nibble then high, against
+    an entry's row of queries, and keep a running minimum with a strict <
+    over the real codes and the rank of that minimum. Used by the tests and
+    chip_smoke.py, by no search path.
+    """
+    q, m, _ = tables.shape
+    cb = m // 2
+    n_pad = codes_rows.shape[0] * (128 // cb)
+    n = max(0, min(int(n), n_pad))
+    dev = codes_rows.device
+    c_total = n_pad // window
+    wins = torch.arange(c_total, device=dev)
+    members = slots_to_rows(window_slots(wins, block_n, window), block_n, cb)  # (C, W)
+    codes = codes_rows.reshape(-1, cb).long()
+    mins, args = [], []
+    for tab in to_query_minor(tables, flat_scan_chunk(q, m)):   # (M, 16, chunk)
+        chunk = tab.shape[-1]
+        best = torch.full((c_total, chunk), torch.inf, dtype=torch.float32, device=dev)
+        arg = torch.full((c_total, chunk), -1, dtype=torch.int64, device=dev)
+        for k in range(window):
+            code = members[:, k]
+            byte = codes[code]                                    # (C, cb)
+            acc = torch.zeros_like(best)
+            for b in range(cb):
+                acc = acc + tab[2 * b][byte[:, b] & 15]
+                acc = acc + tab[2 * b + 1][byte[:, b] >> 4]
+            take = (code < n)[:, None] & (acc < best)             # strict: the lower slot stays
+            best = torch.where(take, acc, best)
+            arg = torch.where(take, k, arg)
+        mins.append(best.T)
+        args.append(arg.T)
+    best = torch.cat(mins)[:q].contiguous()                       # (Q, C)
+    if transpose_out:
+        return best, None
+    if not with_rows:
+        return best.T.contiguous(), None
+    arg = torch.cat(args)[:q]
+    ids = members[wins[None, :], arg.clamp(min=0)]
+    return best.T.contiguous(), torch.where(arg < 0, -1, ids).to(torch.int32).T.contiguous()
+
+
+def prmt(x, y, s):
+    """PTX prmt.b32 in its default mode (csrc/flat_scan_window_perm4.cu:prmt)
+    on uint32 values held in int64 tensors: byte k of the result is byte
+    (s >> 4k) & 7 of the eight bytes of (y:x), or that byte's sign (0x00 or
+    0xFF) where bit 4k + 3 of s is set; bits 16-31 of s are not read."""
+    x, y, s = torch.broadcast_tensors(torch.as_tensor(x), torch.as_tensor(y), torch.as_tensor(s))
+    src = torch.stack([(x >> (8 * i)) & 0xFF for i in range(4)]
+                      + [(y >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    out = torch.zeros_like(x)
+    for k in range(4):
+        nib = (s >> (4 * k)) & 15
+        v = torch.gather(src, -1, (nib & 7)[..., None]).squeeze(-1)
+        v = torch.where((nib & 8) != 0, torch.where((v & 0x80) != 0, 0xFF, 0), v)
+        out = out | (v << (8 * k))
+    return out
+
+
+def vminu2(a, b):
+    """CUDA's __vminu2: the minimum of each unsigned 16-bit lane."""
+    return torch.minimum(a & 0xFFFF, b & 0xFFFF) | (torch.minimum(a >> 16, b >> 16) << 16)
+
+
+def nibble_planes(codes_rows, block_n: int, cb: int):
+    """(blocks, block_n/8 + 1, 2*cb) int64: the nibble planes the register
+    engine stages a block as (csrc/flat_scan_window_perm4.cu:stage_planes).
+    Word (j, m) holds sub-quantizer m's nibbles of slots 8j .. 8j + 7 of the
+    block, slot 8j + i at bits 4i (slot s = c*R + r is the code at in-block
+    position r*cpr + c); the last row is zeros."""
+    codes = codes_rows.reshape(-1, block_n, cb).long()
+    blocks = codes.shape[0]
+    nib = torch.stack([codes & 15, codes >> 4], dim=-1).reshape(blocks, block_n, 2 * cb)
+    slots = torch.arange(block_n, device=codes.device)
+    by_slot = nib[:, slots_to_rows(slots, block_n, cb)]          # (blocks, slot, m)
+    shift = 4 * torch.arange(8, device=codes.device)[:, None]
+    words = (by_slot.reshape(blocks, block_n // 8, 8, 2 * cb) << shift).sum(dim=2)
+    return torch.cat([words, words.new_zeros((blocks, 1, 2 * cb))], dim=1)
+
+
+def _perm4_lookup8(tab, x):
+    """The register engine's lookup8: biased sums of the 8 slots of plane
+    words x (..., 2*cb) for the biased table registers tab (Q, 2*cb, 4), as
+    four words of two 16-bit lanes (slots (0, 2), (1, 3), (4, 6), (5, 7)):
+    (..., Q, 4) int64 holding uint32. For each half of a word: entries 0-7 by
+    prmt with the nibbles as selector, 8-15 with bit 3 flipped, kept byte by
+    byte by the sign-replicating prmt of (x << 4, x)."""
+    x = x[..., None, :]                                           # (..., 1, 2*cb)
+    acc = [0, 0, 0, 0]
+    for m in range(tab.shape[1]):
+        t = [tab[:, m, i] for i in range(4)]                      # (Q,) each
+        xm = x[..., m]
+        hi_sel = xm ^ 0x88888888
+        signs = (xm << 4) & 0xFFFFFFFF
+        for h, (sh, pick) in enumerate(((0, 0xD9C8), (16, 0xFBEA))):
+            mask = prmt(signs, xm, pick)
+            lo, hi = prmt(t[0], t[1], xm >> sh), prmt(t[2], t[3], hi_sel >> sh)
+            r = (hi & mask) | (lo & ~mask & 0xFFFFFFFF)
+            acc[2 * h] = (acc[2 * h] + (r & 0x00FF00FF)) & 0xFFFFFFFF
+            acc[2 * h + 1] = (acc[2 * h + 1] + prmt(r, 0, 0x4341)) & 0xFFFFFFFF
+    return torch.stack(acc, dim=-1)
+
+
+def _lane_slots_mask(dead, shape):
+    """(..., 4) words with 0xFFFF in the 16-bit lanes of the slots i (0..7)
+    where dead[..., i] holds, in _perm4_lookup8's lane order."""
+    mask = torch.zeros((*shape, 4), dtype=torch.int64, device=dead.device)
+    for i in range(8):
+        word = (i >> 2) * 2 + (i & 1)
+        mask[..., word] |= torch.where(dead[..., i], 0xFFFF << (16 * ((i >> 1) & 1)), 0)
+    return mask
+
+
+def flat_scan_window_planes_plain(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
+                                  window: int = DEFAULT_WINDOW):
+    """flat_scan_window_regs' function by its kernel's own arithmetic
+    (csrc/flat_scan_window_perm4.cu): the same arguments (int8 tables) and
+    (N_pad/W, Q) int32 minima as flat_scan_window_plain, bit for bit.
+
+    The blocks are staged as nibble_planes; the table entries are biased to
+    unsigned (XOR 0x80); four nibbles are looked up by three prmt calls and
+    a select, and their sums kept in 16-bit lanes of 32-bit words
+    (_perm4_lookup8).
+    With G = block_n / W windows a block, a step is 8 slots: for G in (1, 2,
+    4) the plane words in order, lane i folding into window i % G at the end;
+    otherwise rank k of windows g0 .. g0 + 7 (slots kG + g0 ..), a funnel
+    shift of two plane words where 8 does not divide kG + g0, lanes past the
+    block's last window dead. A lane whose code is padding is 0xFFFF before
+    the packed minimum (vminu2); 0xFFFF at the end is a window with no real
+    code (TRIM_SENTINEL), any other lane less 128 * 2*cb is the minimum.
+    Used by the tests, by no search path.
+    """
+    q, m, _ = tables.shape
+    cb = m // 2
+    cpr = 128 // cb
+    n_pad = codes_rows.shape[0] * cpr
+    n = max(0, min(int(n), n_pad))
+    dev = codes_rows.device
+    groups = block_n // window
+    blocks = n_pad // block_n
+    planes = nibble_planes(codes_rows, block_n, cb)               # (blocks, J + 1, 2*cb)
+    tab = (tables.contiguous().view(torch.uint8).long() ^ 0x80).reshape(q, m, 4, 4)
+    tab = (tab << (8 * torch.arange(4, device=dev))).sum(dim=-1)  # (Q, 2*cb, 4) registers
+    real = n - torch.arange(blocks, device=dev) * block_n         # real codes of each block
+    lane = torch.arange(8, device=dev)
+    if groups in (1, 2, 4):
+        steps = torch.arange(0, block_n, 8, device=dev)           # (S,) first slots
+    else:
+        g0 = torch.arange(0, groups, 8, device=dev)
+        ranks = torch.arange(window, device=dev)
+        steps = ranks[None, :] * groups + g0[:, None]             # (groups / 8, W)
+    j, off = steps >> 3, (steps & 7) * 4
+    blk = torch.arange(blocks, device=dev).reshape(-1, *([1] * steps.dim()))
+    lo, hi = planes[blk, j], planes[blk, j + 1]                   # (blocks, *steps, 2*cb)
+    off = off[..., None]
+    x = torch.where(off > 0, ((lo >> off) | (hi << (32 - off))) & 0xFFFFFFFF, lo)
+    acc = _perm4_lookup8(tab, x)                                  # (blocks, *steps, Q, 4)
+    slot = steps[..., None] + lane                                # (*steps, 8)
+    dead = slots_to_rows(slot, block_n, cb) >= real.reshape(-1, *([1] * slot.dim()))
+    if groups not in (1, 2, 4):
+        dead = dead | (g0[:, None, None] + lane >= groups)       # lanes past the last window
+    acc = acc | _lane_slots_mask(dead, dead.shape[:-1])[..., None, :]
+    best = acc.new_full((*acc.shape[:-3], q, 4), 0xFFFFFFFF)
+    for k in range(acc.shape[-3]):                                # over steps (fold) or ranks
+        best = vminu2(best, acc[..., k, :, :])
+    empty, bias = 0xFFFF, 128 * m
+    if groups in (1, 2, 4):
+        even = vminu2(best[..., 0], best[..., 2])                 # (blocks, Q)
+        odd = vminu2(best[..., 1], best[..., 3])
+        if groups == 4:
+            lanes = torch.stack([even & 0xFFFF, odd & 0xFFFF, even >> 16, odd >> 16], dim=1)
+        else:
+            e = torch.minimum(even & 0xFFFF, even >> 16)
+            o = torch.minimum(odd & 0xFFFF, odd >> 16)
+            lanes = torch.stack([e, o], dim=1) if groups == 2 else \
+                torch.minimum(e, o)[:, None]
+    else:                                                         # (blocks, groups / 8, Q, 4)
+        per = torch.stack([(best[..., (i >> 2) * 2 + (i & 1)] >> (16 * ((i >> 1) & 1))) & 0xFFFF
+                           for i in range(8)], dim=2)             # (blocks, groups / 8, 8, Q)
+        lanes = per.reshape(blocks, -1, q)[:, :groups]
+    out = torch.where(lanes == empty, TRIM_SENTINEL, lanes - bias)
+    return out.reshape(blocks * groups, q).to(torch.int32)
 
 
 def lut_scan_topk_int8(codes_rows, qtables, r: int, num_valid: int,

@@ -7,8 +7,10 @@ its counterpart here, over the tensor-core scan of csrc/scan_mma.cuh:
   benchmarks/ab_tq.py:lut_scan_tq       A/B of two formulations of one scan
       -> `ab_scans`: lut_scan.flat_scan and flat_scan_window (int8 one-hot
          x table mma) against flat_scan_lookup and flat_scan_window_lookup
-         (shared-memory lookups) and flat_scan_window_regs (tables in
-         registers), minima equal bit for bit
+         (shared-memory lookups) and the two register engines,
+         flat_scan_window_regs (four lookups a byte permute) and
+         flat_scan_window_regs_single (one a nibble), minima equal bit for
+         bit
   benchmarks/ab_tq_ablate.py:scan       where the time outside the matrix unit goes
       -> `scan_lab` modes full / const_onehot / no_mma / no_min, of the
          mma.sync kernel and (wg_*) of the warpgroup kernel
@@ -26,7 +28,9 @@ anything here.
 The query-minor flat scans (csrc/flat_scan_qm.cuh, flat_scan8_qm.cuh) have
 their modes in QM_LAB_MODES (`query_minor_lab`, kernels of csrc/scan_lab_qm.cu),
 `query_minor_by_chunk` runs either at a forced chunk of queries, and
-`empty_kernel` gives the device time of a launch.
+`empty_kernel` gives the device time of a launch. `sass_loops` counts
+the instructions of a compiled kernel's innermost loops by pipe (the register
+engine's instructions a lookup), `sass_loop_ops` over the built library.
 
 The slot-minor grouped scans (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu)
 and the kernels they replaced (grouped_scan.cu's float instantiation,
@@ -36,6 +40,10 @@ what defines them by `check_grouped`).
 
 from __future__ import annotations
 
+import re
+import subprocess
+from collections import Counter
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -316,7 +324,8 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
     is a storage row), each as a call returning (Q, R) minima: flat_scan and
     flat_scan_window on the tensor cores (the window scan in its
     window-major column order), and the lookup kernels of flat_scan_lookup,
-    flat_scan_window_lookup and flat_scan_window_regs."""
+    flat_scan_window_lookup, and the register engines of
+    flat_scan_window_regs and flat_scan_window_regs_single."""
     cb = tables.shape[1] // 2
     block = 64 * (128 // cb)      # 64 storage rows a code block: windows are rows
     if (codes_rows.shape[0] * (128 // cb)) % block:
@@ -331,6 +340,8 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
             codes_rows, tables, n, block, window, transpose_out=True)[0],
         "flat_scan_window_regs": lambda: lut_scan.flat_scan_window_regs(
             codes_rows, tables, n, block, window).T,
+        "flat_scan_window_regs_single": lambda: lut_scan.flat_scan_window_regs_single(
+            codes_rows, tables, n, block, window).T,
     }
 
 
@@ -340,7 +351,8 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
 AB_KERNELS = {"flat_scan": "mma_kernel", "flat_scan_lookup": "flat_scan_kernel",
               "flat_scan_window": "mma_kernel",
               "flat_scan_window_lookup": "flat_scan_window_kernel",
-              "flat_scan_window_regs": "flat_scan_window_regs_kernel"}
+              "flat_scan_window_regs": "flat_scan_window_perm4_kernel",
+              "flat_scan_window_regs_single": "flat_scan_window_regs_kernel"}
 
 
 def check(codes_rows, tables, n: int) -> dict:
@@ -485,3 +497,110 @@ def check_grouped(f32_args, u8_args) -> None:
             if not bool(torch.isinf(mins[live]).all()) or (
                     scan == "u8" and not bool((got[1][live] == -1).all())):
                 raise AssertionError(f"grouped lab mode {mode} did not write the sentinel")
+
+
+# SASS opcodes that run on the FMA pipe (integer multiply-adds included);
+# the uniform datapath's (U*), memory, barrier and control opcodes are
+# counted apart; every other opcode is counted on the integer ALU pipe.
+SASS_FMA = ("IMAD", "IMUL", "FFMA", "FADD", "FMUL", "HFMA2", "HADD2", "HMUL2")
+SASS_OTHER = ("LD", "ST", "BRA", "BAR", "EXIT", "NOP", "RET", "CALL", "BSSY", "BSYNC", "WARPSYNC",
+              "DEPBAR", "S2R", "CS2R", "MEMBAR", "ERRBAR", "CCTL", "YIELD", "ATOM", "RED")
+
+
+def sass_loops(sass: str, kernel: str, lookups_per_cb: int) -> dict:
+    """Instruction counts of the innermost loops that hold byte permutes
+    (PRMT), in every compiled instance of `kernel` in cuobjdump -sass text.
+
+    A loop is a branch back to an earlier address; it is `nested` where
+    another loop encloses it. Its ops are counted along one pass through its
+    body: the path, over the body's forward branches, that runs the most
+    PRMTs and, among those, the fewest integer-pipe instructions. Code that
+    a forward branch can skip without losing a PRMT (the register engine's
+    funnel shifts for a rank that straddles two plane words, the padding
+    masks of a block's last codes) is left out: that is the path of a block
+    of real codes whose ranks start on a plane word.
+
+    A pass of the kernel's source loop looks up lookups_per_cb * CB entries
+    with one PRMT each (the register engine: 8 a sub-quantizer word of 8
+    slots); the passes that the compiler unrolled into one loop are the
+    path's PRMTs over a pass's, rounded. CB is the first template argument.
+
+    Returns {CB: [{"start": address, "nested": bool, "ops": {opcode: n},
+    "alu": n, "fma": n, "other": n, "prmt": n, "lookups": n,
+    "alu_per_lookup": x, "fma_per_lookup": x}, ...]}, in address order.
+    """
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        instrs = []  # (address, opcode, predicated, branch target or None)
+        for line in block.split("\n"):
+            ins = re.match(
+                r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+            if ins:
+                target = re.match(r"\s*(?:!?U?P[T0-9]+,\s*)?0x([0-9a-f]+)", ins.group(4))
+                instrs.append((int(ins.group(1), 16), ins.group(3).split(".")[0],
+                               ins.group(2) is not None,
+                               int(target.group(1), 16) if target else None))
+        loops = [(t, a) for a, op, _, t in instrs if op == "BRA" and t is not None and t <= a]
+        cb = int(re.search(r"kernelILi(\d+)E", name).group(1))
+        per_pass = lookups_per_cb * cb
+        found = []
+        for t, a in loops:
+            if any(t <= t2 and a2 <= a and (t2, a2) != (t, a) for t2, a2 in loops):
+                continue  # encloses another loop
+            ops = _hot_path([ins for ins in instrs if t <= ins[0] <= a], a)
+            if not ops["PRMT"]:
+                continue
+            fma = sum(c for o, c in ops.items() if o.startswith(SASS_FMA))
+            other = sum(c for o, c in ops.items()
+                        if o.startswith("U") or o.startswith(SASS_OTHER))
+            alu = sum(ops.values()) - fma - other
+            lookups = max(1, round(ops["PRMT"] / per_pass)) * per_pass
+            found.append({"start": t, "nested": any(t2 <= t and a <= a2 and (t2, a2) != (t, a)
+                                                    for t2, a2 in loops),
+                          "ops": dict(ops.most_common()), "alu": alu, "fma": fma,
+                          "other": other, "prmt": ops["PRMT"], "lookups": lookups,
+                          "alu_per_lookup": alu / lookups, "fma_per_lookup": fma / lookups})
+        out[cb] = found
+    return out
+
+
+def _hot_path(body: list, end: int) -> Counter:
+    """Opcode counts along the path from a loop body's first instruction to
+    its back branch at address `end` with the most PRMTs and, among those,
+    the fewest integer-pipe instructions. body: (address, opcode,
+    predicated, target) in address order; its forward branches only."""
+    index = {ins[0]: i for i, ins in enumerate(body)}
+    best = [None] * len(body)  # (-PRMTs, integer-pipe ops, Counter) on arrival
+    best[0] = (0, 0, Counter())
+
+    def arrive(i, key):
+        if best[i] is None or key[:2] < best[i][:2]:
+            best[i] = key
+
+    for i, (addr, op, predicated, target) in enumerate(body):
+        if best[i] is None:
+            continue
+        prmt, alu, ops = best[i]
+        pipe = op.startswith(SASS_FMA) or op.startswith("U") or op.startswith(SASS_OTHER)
+        here = (prmt - (op == "PRMT"), alu + (not pipe), ops + Counter([op]))
+        if addr == end:
+            return here[2]
+        jumps = op == "BRA" and target is not None
+        if jumps and target in index and target > addr:
+            arrive(index[target], here)
+        if not (jumps or op == "EXIT") or predicated:
+            arrive(i + 1, here)
+    raise ValueError("no path reaches the loop's back branch")
+
+
+def sass_loop_ops(library: Path, kernel: str, lookups_per_cb: int) -> dict:
+    """sass_loops over the built kernel library (cuobjdump -sass)."""
+    from qadc_tpu_torch.kernels.build import _nvcc
+
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return sass_loops(text, kernel, lookups_per_cb)

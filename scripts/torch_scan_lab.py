@@ -3,6 +3,7 @@
 
     python3 scripts/torch_scan_lab.py          # one CUDA card, about 100 s
     python3 scripts/torch_scan_lab.py grouped  # the grouped section alone
+    python3 scripts/torch_scan_lab.py window   # the window section alone
 
 The counterpart of the JAX package's scratch scripts benchmarks/ab_tq.py,
 ab_tq_ablate.py, kernel_lab.py and diag_direct.py, for the tensor-core scans
@@ -46,6 +47,14 @@ queries' int8 tables it prints, in device milliseconds (torch.profiler,
            groups of 128 live slots); each with its lab modes (copy, no_min,
            const_code, and every slot dead) at 32 queries and at the hot
            partition; the new kernels' b=32 time in ten runs.
+
+  window   the float32 flat_scan_window by its query-minor kernel
+           (csrc/flat_scan_window_qm.cu) and by the lookup kernel it
+           replaced (flat_scan_window_f32_lookup) at 1 to 128 queries, at
+           (block 1024, W 16) and (512, 8) over the 16x4 codes and (1024, 16)
+           over 1,000,448 seeded random 32x4 codes, both equal bit for bit
+           at every batch first: the crossover behind the kernel choice of
+           lut_scan.flat_scan_window.
 
 The last two lines are one JSON object {"scan_lab": ...} and the card's name
 and power limit. It exits non-zero without a card or on any disagreement.
@@ -164,6 +173,36 @@ def query_minor(codes, dev, card: str) -> dict:
     return out
 
 
+def window_crossover(codes, dev, card: str) -> dict:
+    """The window section: see the module docstring."""
+    rng = np.random.default_rng(4)
+    codes32 = torch.from_numpy(rng.integers(0, 256, (N_PAD // 8, 128), dtype=np.uint8)).to(dev)
+    tables = {16: torch.from_numpy(rng.random((Q, 16, 16)).astype(np.float32)).to(dev),
+              32: torch.from_numpy(rng.random((Q, 32, 16)).astype(np.float32)).to(dev)}
+    out = {}
+    floor = lut_scan.QUERY_MINOR_MIN_QUERIES
+    try:
+        lut_scan.QUERY_MINOR_MIN_QUERIES = 1
+        for m, ix_codes, bn, w in ((16, codes, 1024, 16), (16, codes, 512, 8),
+                                   (32, codes32, 1024, 16)):
+            for q in (1, 2, 4, 8, 12, 16, 20, 24, 26, 28, 30, 32, 64, Q):
+                args = (ix_codes, tables[m][:q].contiguous(), N, bn, w)
+                got, want = (lut_scan.flat_scan_window(*args, with_rows=True),
+                             lut_scan.flat_scan_window_f32_lookup(*args, with_rows=True))
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{m}x4 ({bn}, {w}) b={q}: the query-minor window "
+                                         "kernel differs from the lookup kernel")
+                out[f"{m}x4 b{bn} w{w} b={q}"] = {
+                    "query_minor": device_ms(lambda: lut_scan.flat_scan_window(*args),
+                                             "flat_scan_window_qm_kernel"),
+                    "lookup": device_ms(lambda: lut_scan.flat_scan_window_f32_lookup(*args),
+                                        "flat_scan_window_kernel")}
+    finally:
+        lut_scan.QUERY_MINOR_MIN_QUERIES = floor
+    print(f"float window scan by kernel and batch, device ms: {out} [{card}]", flush=True)
+    return out
+
+
 def grouped(dev, card: str) -> dict:
     """The grouped section: see the module docstring."""
     rng = np.random.default_rng(2)
@@ -228,6 +267,11 @@ def main() -> int:
         return 0
     rng = np.random.default_rng(0)
     codes = torch.from_numpy(rng.integers(0, 256, (N_PAD // 16, 128), dtype=np.uint8)).to(dev)
+    if sys.argv[1:] == ["window"]:  # the window section alone
+        print(json.dumps({"scan_lab": {"window": window_crossover(codes, dev, card)},
+                          "card": card}))
+        print(card)
+        return 0
     tables = torch.from_numpy(rng.integers(0, 128, (Q, 16, 16)).astype(np.int8)).to(dev)
 
     print(f"modes: {json.dumps({k: v[2] for k, v in scan_lab.LAB_MODES.items()})}")
@@ -258,6 +302,7 @@ def main() -> int:
           f"wgmma from {floor} queries) [{card}]", flush=True)
 
     out["query_minor"] = query_minor(codes, dev, card)
+    out["window"] = window_crossover(codes, dev, card)
     out["grouped"] = grouped(dev, card)
 
     arrays, manifest = bench_ivf_arrays(rng)

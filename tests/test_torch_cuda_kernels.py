@@ -366,6 +366,14 @@ WINDOW_SHAPES = [(16, 1024, 16), (32, 1024, 16), (16, 512, 8), (32, 512, 8), (16
                  (32, 8, 2)]
 
 
+# (m, block_n, window) of the tensor-core window scans: those of
+# WINDOW_SHAPES, W = 2 cpr, windows longer than a tile (256 > 128 columns;
+# 1024), W = 1, and windows of no power of two (24, 3: dead columns).
+WINDOW_TC_SHAPES = WINDOW_SHAPES + [(16, 1024, 32), (32, 1024, 32), (16, 2048, 256),
+                                    (32, 2048, 256), (16, 1024, 1024), (16, 1024, 1),
+                                    (32, 1536, 24), (16, 1536, 3)]
+
+
 def _window_inputs(m, block_n, f32, q=37, blocks=5, seed=500):
     g = np.random.default_rng(seed + m + block_n)
     codes = torch.from_numpy(g.integers(0, 256, (blocks * block_n * m // 256, 128),
@@ -399,19 +407,30 @@ def test_flat_scan_window_matches_plain(cuda, m, block_n, window, f32, mode):
         assert got_i is None and want_i is None
 
 
-@pytest.mark.parametrize("m,block_n,window", WINDOW_SHAPES)
-@pytest.mark.parametrize("q", [37, 130])   # a partial warp; a second block of queries
+@pytest.mark.parametrize("m,block_n,window", WINDOW_TC_SHAPES)
+@pytest.mark.parametrize("q", [5, 37, 130])   # partial warps; a second block of queries
 def test_flat_scan_window_regs_matches_plain(cuda, m, block_n, window, q):
+    """The four-lookup register engine (flat_scan_window_regs) and the kernel
+    it replaced (flat_scan_window_regs_single) equal the plain version, the
+    engine's own walk and flat_scan_window bit for bit, each counted once;
+    G = block_n / W runs 8 windows a lane (G a multiple of 8) or folds (G = 4
+    at (32, 8, 2), G = 1 at W = block_n)."""
     codes, tables, n = _window_inputs(m, block_n, False, q=q)
     want, _ = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window)
-    before = lut_scan.launches["flat_scan_window_regs"]
+    before = dict(lut_scan.launches)
     got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), n, block_n, window)
+    arm = lut_scan.flat_scan_window_regs_single(codes.to(cuda), tables.to(cuda), n, block_n,
+                                                window)
     same_kernel, _ = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n,
                                                window)
     torch.cuda.synchronize()
-    assert lut_scan.launches["flat_scan_window_regs"] == before + 1
+    assert lut_scan.launches["flat_scan_window_regs"] == before["flat_scan_window_regs"] + 1
+    assert (lut_scan.launches["flat_scan_window_regs_single"]
+            == before["flat_scan_window_regs_single"] + 1)
     assert torch.equal(got.cpu(), want)
-    assert torch.equal(got, same_kernel)
+    assert torch.equal(got, arm) and torch.equal(got, same_kernel)
+    assert torch.equal(lut_scan.flat_scan_window_planes_plain(codes, tables, n, block_n, window),
+                       want)
 
 
 def test_flat_scan_window_regs_takes_negative_entries(cuda):
@@ -420,16 +439,23 @@ def test_flat_scan_window_regs_takes_negative_entries(cuda):
     codes = torch.from_numpy(g.integers(0, 256, (128, 128), dtype=np.uint8))
     tables = torch.from_numpy(g.integers(-128, 128, (33, 16, 16)).astype(np.int8))
     want, _ = lut_scan.flat_scan_window_plain(codes, tables, 2048, 1024, 16)
-    got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), 2048, 1024, 16)
+    for fn in (lut_scan.flat_scan_window_regs, lut_scan.flat_scan_window_regs_single):
+        got = fn(codes.to(cuda), tables.to(cuda), 2048, 1024, 16)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("entry", [-128, 127])
+@pytest.mark.parametrize("block_n,window", [(1024, 16), (1024, 1024), (8, 2)])
+def test_flat_scan_window_regs_extreme_entries(cuda, entry, block_n, window):
+    """Tables of all -128 or all 127 at 32 sub-quantizers: biased sums of 0
+    and 32 * 255 in the 16-bit lanes, no carry between lanes."""
+    g = np.random.default_rng(3)
+    codes = torch.from_numpy(g.integers(0, 256, (256, 128), dtype=np.uint8))
+    tables = torch.full((40, 32, 16), entry, dtype=torch.int8)
+    got = lut_scan.flat_scan_window_regs(codes.to(cuda), tables.to(cuda), 2000, block_n, window)
+    want, _ = lut_scan.flat_scan_window_plain(codes, tables, 2000, block_n, window)
     assert torch.equal(got.cpu(), want)
-
-
-# (m, block_n, window) of the tensor-core window scans: those of
-# WINDOW_SHAPES, W = 2 cpr, windows longer than a tile (256 > 128 columns;
-# 1024), W = 1, and windows of no power of two (24, 3: dead columns).
-WINDOW_TC_SHAPES = WINDOW_SHAPES + [(16, 1024, 32), (32, 1024, 32), (16, 2048, 256),
-                                    (32, 2048, 256), (16, 1024, 1024), (16, 1024, 1),
-                                    (32, 1536, 24), (16, 1536, 3)]
+    assert bool(((want == 32 * entry) | (want == lut_scan.TRIM_SENTINEL)).all())
 
 
 @pytest.mark.parametrize("m,block_n,window", WINDOW_TC_SHAPES)
@@ -455,6 +481,51 @@ def test_flat_scan_window_tensor_cores_equal_arm_and_plain(cuda, m, block_n, win
     for other in (arm, plain, walk):
         assert torch.equal(got[0].cpu(), other[0].cpu())
         assert got[1] is other[1] is None or torch.equal(got[1].cpu(), other[1].cpu())
+
+
+@pytest.mark.parametrize("m,block_n,window", WINDOW_TC_SHAPES)
+@pytest.mark.parametrize("q", [5, 20, 37, 130])  # both sides of the threshold; two chunks
+@pytest.mark.parametrize("mode", ["min", "rows", "transposed"])
+@pytest.mark.parametrize("forced", [False, True], ids=["wrapper", "query_minor_forced"])
+def test_flat_scan_window_f32_query_minor_equals_arm_and_plain(cuda, monkeypatch, m, block_n,
+                                                               window, q, mode, forced):
+    """The float32 window scan (the query-minor kernel from
+    WINDOW_QUERY_MINOR_MIN_QUERIES queries on, the lookup kernel below; or,
+    forced, the query-minor kernel at every batch) equals the lookup arm
+    (flat_scan_window_f32_lookup), the plain version and the query-minor
+    walk bit for bit: minima, transposed minima and argmin ids, with padded
+    codes inside a block. Each call is counted once."""
+    if forced:
+        monkeypatch.setattr(lut_scan, "WINDOW_QUERY_MINOR_MIN_QUERIES", 1)
+    codes, tables, n = _window_inputs(m, block_n, True, q=q)
+    kw = dict(with_rows=mode == "rows", transpose_out=mode == "transposed")
+    before = dict(lut_scan.launches)
+    got = lut_scan.flat_scan_window(codes.to(cuda), tables.to(cuda), n, block_n, window, **kw)
+    arm = lut_scan.flat_scan_window_f32_lookup(codes.to(cuda), tables.to(cuda), n, block_n,
+                                               window, **kw)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["flat_scan_window_f32"] == before["flat_scan_window_f32"] + 1
+    assert (lut_scan.launches["flat_scan_window_f32_lookup"]
+            == before["flat_scan_window_f32_lookup"] + 1)
+    plain = lut_scan.flat_scan_window_plain(codes, tables, n, block_n, window, **kw)
+    walk = lut_scan.flat_scan_window_query_minor_plain(codes, tables, n, block_n, window, **kw)
+    for other in (arm, plain, walk):
+        assert torch.equal(got[0].cpu(), other[0].cpu())
+        assert got[1] is other[1] is None or torch.equal(got[1].cpu(), other[1].cpu())
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("q", [9, 130])
+def test_flat_scan_window_f32_at_cpr_is_flat_scan(cuda, m, q):
+    """At W = cpr the float window scan's minima and ids are float
+    flat_scan's with rows, transposed, bit for bit."""
+    cpr = 256 // m
+    codes, tables, n = _window_inputs(m, 1024, True, q=q, blocks=7)
+    codes, tables = codes.to(cuda), tables.to(cuda)
+    mins, _ = lut_scan.flat_scan_window(codes, tables, n, 1024, cpr, transpose_out=True)
+    vals, ids = lut_scan.flat_scan_window(codes, tables, n, 1024, cpr, with_rows=True)
+    f_mins, f_ids = lut_scan.flat_scan(codes, tables, n, with_rows=True)
+    assert torch.equal(mins, f_mins) and torch.equal(vals.T, f_mins) and torch.equal(ids.T, f_ids)
 
 
 @pytest.mark.parametrize("m", [16, 32])
