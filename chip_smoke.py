@@ -124,6 +124,24 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      card) at b=32 and 512 against the unsharded grouped search and the
      oracle. One `sharded` JSON line holds us/query, device-busy ms, idle
      share and launches of each search.
+  9. the surface (surface_phases): (a) examples/torch_sift_pipeline.py at
+     its default size (the JAX example's stand-in, draw for draw: 100,000
+     learn, 200,000 base, 256 queries), its 256 queries in one search (M1
+     int8 and M2), recall@100 at least EXAMPLE_FLOOR; (b) the GIST1M
+     geometry (eval/synth.gist_moment_like, numpy seed 0: 1M x 960 and 1,000
+     queries, learn the first 100,000): OPQ 16x8 and 32x4 flat indexes,
+     IVF-256 (balance cap 3) with OPQ 16x8 and 32x4 on residuals, recall@100
+     of each against the exact 1-NN in batches of 32 (IVF 32x4 Quick ADC
+     with and without rerank, and one query at a time: M3), train and build
+     seconds, us/query with device busy and idle share at b=32 and 128, and
+     the kernels at these widths (flat_scan8 m=16, flat_scan int8 CB=16 by
+     the warpgroup and mma.sync kernels, grouped_scan8 m=16, M1 CB=16, M2,
+     M3) held to their plain versions into the `kernels` line; (c) train_pq
+     8x16 on the first 262,144 of the build phase's vectors and on their
+     IVF-256 residuals (k-means++ seeding timed apart, peak device memory),
+     flat and IVF 8x16 indexes of the 1M vectors, each search_adc's
+     recall@100 at least flat 8x8 OPQ ADC's on the same 128 queries. One
+     `surface` JSON line holds the numbers.
 
 Beside each kernel's time the `kernels` line gives its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -153,6 +171,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 R, MA, KEEP = 100, 24, 0.005
 BATCHES = (1, 32, 128)
@@ -208,6 +227,15 @@ PATH_KERNELS = {
     "sharded_query_parallel": ("grouped_scan", "rows_adc"),
     "sharded_deep100m": ("grouped_scan", "rows_adc"),
     "autotune": ("grouped_scan", "rows_adc"),
+    "example": ("grouped_scan", "rows_adc"),
+    "gist_flat_adc8": ("flat_scan8",),
+    "gist_flat_qadc": ("flat_scan", "rows_adc"),
+    "gist_ivf_adc8": ("grouped_scan8",),
+    "gist_ivf_qadc": ("grouped_scan", "rows_adc"),
+    "gist_ivf_qadc_norerank": ("grouped_scan", "rows_adc"),
+    "gist_ivf_qadc_b1": ("direct_scan",),
+    "sixteen_flat": (),      # 16-bit: decode and a float32 GEMM
+    "sixteen_ivf": (),
     "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
                  "flat_scan_window", "flat_scan_window_lookup", "flat_scan_window_regs",
                  "flat_scan_window_regs_single", "flat_scan_f32_lookup",
@@ -256,7 +284,16 @@ DEEP_PARTS, DEEP_DIM, DEEP_M, DEEP_N = 4096, 96, 16, 100_000_000
 DEEP_BATCHES, DEEP_ORACLE_NQ = (32, 512), 8
 # The sharded phase's search paths (phase 8).
 SHARDED_PATHS = tuple(p for p in PATH_KERNELS if p.startswith("sharded_"))
-# CUDA kernels torch.profiler must see launched by each workflow and sharded phase.
+# Phase 9: the example's floor (the JAX example's recall on its stand-in on
+# the CPU, 0.7930, less 0.035), the GIST1M geometry (TexMex: 1M base vectors
+# of dim 960, 1,000 queries; the learn set the first 100,000, as
+# benchmarks/recall_curves.py takes it; IVF keep 0.852%), and 16-bit
+# training (8x16 PQ on 4 K = 262,144 vectors, the JAX default iterations).
+EXAMPLE_FLOOR = 0.758
+GIST_N, GIST_NQ, GIST_LEARN, GIST_IVF_KEEP = 1_000_000, 1_000, 100_000, 0.00852
+SIXTEEN_LEARN, SIXTEEN_ITERS = 262_144, 50
+# CUDA kernels torch.profiler must see launched by each workflow, sharded and
+# phase 9 path (gist_*: at b=32; _b128 and _b1 at those batches).
 PROFILED_KERNELS = {
     "cli_ivf_qadc": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
     "cli_ivf_adc": ("grouped_scan_sm_kernel", "rows_adc_kernel"),
@@ -270,6 +307,13 @@ PROFILED_KERNELS = {
     "sharded_flat_adc8": (),
     "sharded_query_parallel": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
     "sharded_deep100m": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "example": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "gist_flat_adc8": ("flat_scan8_qm_kernel",),
+    "gist_flat_qadc": ("flat_scan_mma_kernel", "rows_adc_kernel"),          # b=32
+    "gist_flat_qadc_b128": ("flat_scan_wgmma_kernel", "rows_adc_kernel"),
+    "gist_ivf_adc8": ("grouped_scan8_sm_kernel",),
+    "gist_ivf_qadc": ("grouped_scan_mma_kernel", "rows_adc_kernel"),
+    "gist_ivf_qadc_b1": ("direct_scan_kernel",),
 }
 
 
@@ -1138,7 +1182,6 @@ def main() -> int:
     # ---- 7. the workflow: files, CLI, engine, server, autotune ---------------
     cli_index = workflow_phases(torch, np, device, card, base_np, cli_q_np, drive,
                                 Path(workdir.name) / "workflow")
-    del base_np
     # M3 at the CLI's trained IVF-256 (part_pad 12,288), at the batches its
     # crossover phase sends down the direct path.
     for b in BATCHES:
@@ -1461,6 +1504,14 @@ def main() -> int:
     # ---- 8. the sharded searches on one card, a process group of one rank ----
     sharded_phases(torch, np, device, card, drive, launches, index, queries, flat_indexes, fq,
                    Path(workdir.name) / "sharded")
+
+    # ---- 9. the example, the GIST1M geometry, 16-bit training ----------------
+    surface_phases(torch, np, device, card,
+                   SimpleNamespace(kernel_phase=kernel_phase, drive=drive, m3_phases=m3_phases,
+                                   e2e=e2e, launches=launches),
+                   {"base_np": base_np, "tq": tq, "gt": gt, "coarse": coarse,
+                    "floor": recalls["flat_8x8_adc"]})
+    del base_np
 
     # The launch count of each kernel phase comes from the path that runs it;
     # sharded_launches: the sharded paths' runs (phase 8) that launched it.
@@ -2102,6 +2153,325 @@ def sharded_phases(torch, np, device, card, drive, launches, index, queries, fla
     finally:
         dist.destroy_process_group()
     print(json.dumps({"sharded": out, "card": card}), flush=True)
+
+
+def surface_phases(torch, np, device, card, ctx, sift) -> dict:
+    """Phase 9: the example, the GIST1M geometry and 16-bit training.
+
+    ctx: main's helpers kernel_phase, drive, m3_phases and e2e, and
+    launches (the counts drive records a path). sift: the trained phase's
+    data (base_np, its 128 queries tq, their true neighbours gt, the coarse
+    quantizer, and flat 8x8 OPQ ADC's recall, the 16-bit floor).
+
+    (a) examples/torch_sift_pipeline.py at its default size (the JAX
+        example's stand-in: 100,000 learn, 200,000 base, 256 queries), its
+        256 queries in one search (the grouped path: M1 int8 and M2);
+        recall@100 at least EXAMPLE_FLOOR.
+    (b) GIST1M's geometry on eval/synth.gist_moment_like (numpy seed 0):
+        OPQ 16x8 and 32x4 flat indexes, IVF-256 with OPQ 16x8 and 32x4 on
+        residuals; recall@100 of each in batches of 32 (IVF 32x4 Quick ADC
+        with and without rerank, and one query at a time: M3); us/query,
+        device busy and idle share at b=32 and 128; the kernels at these
+        widths (flat_scan8 m=16, flat_scan int8 CB=16 by its warpgroup and
+        mma.sync kernels, grouped_scan8 m=16, M1 CB=16, M2, M3) held to
+        their plain versions, timed and bounded into the kernels line.
+    (c) 16-bit training: train_pq 8x16 on the first 4 K = 262,144 of the
+        trained phase's vectors (and on their IVF residuals), with the
+        seeding timed apart and the training's peak device memory; flat
+        and IVF-256 8x16 indexes of the 1M vectors, each search_adc's
+        recall@100 at least flat 8x8 OPQ ADC's on the same queries.
+    """
+    import importlib.util
+
+    from qadc_tpu_torch.eval.recall import recall_at_r
+    from qadc_tpu_torch.eval.synth import gist_moment_like
+    from qadc_tpu_torch.index import flat, ivf
+    from qadc_tpu_torch.kernels import lut_scan
+    from qadc_tpu_torch.ops.knn import assign_nearest
+    from qadc_tpu_torch.quantizers.opq import train_opq
+    from qadc_tpu_torch.quantizers.pq import train_pq
+
+    kmeans_mod = importlib.import_module("qadc_tpu_torch.ops.kmeans")
+    out = {}
+
+    def profiled_kernels(phase, fn):
+        """require_kernels over one run of fn, its profiler window taken
+        again (three in all) where it holds no record of a required kernel:
+        the profiler drops some events (a whole-smoke run missed
+        flat_scan8's one launch in a window that phase 9 alone had seen)."""
+        for window in range(1, 4):
+            seen = kernels_seen(torch, fn)[0]
+            if all(any(k in name for name in seen) for k in PROFILED_KERNELS[phase]):
+                break
+            print(f"{phase}: profiler window {window} holds no record of a required kernel "
+                  f"(kernels seen: {sorted(n for n in seen if 'kernel' in n)})", flush=True)
+        return require_kernels(phase, seen)
+
+    def recall_in_batches(path, search_fn, qs, gt, batch):
+        labels = ctx.drive(path, lambda: torch.cat(
+            [search_fn(qs[s:s + batch])[1] for s in range(0, qs.shape[0], batch)]).cpu().numpy())
+        check(labels.shape == (qs.shape[0], R) and labels.min() >= 0, f"{path}: labels")
+        rec = recall_at_r(labels, gt)
+        print(f"recall@{R} {path}: {rec} (true neighbours, {qs.shape[0]} queries, batches of "
+              f"{batch}) [{card}]", flush=True)
+        return rec
+
+    # ---- (a) the example ----------------------------------------------------
+    path = Path(__file__).resolve().parent / "examples" / "torch_sift_pipeline.py"
+    spec = importlib.util.spec_from_file_location("torch_sift_pipeline", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+
+    def timed_s(label, fn, into: dict):
+        """fn(), timed to a synchronise; into[label up to " ("] = seconds."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        into[label.split(" (")[0]] = s = time.perf_counter() - t
+        print(f"{label}: {s:.2f} s [{card}]", flush=True)
+        return res
+
+    secs = {}
+
+    learn, base, query, gt, name = timed_s(
+        f"example data (the stand-in: {ex.LEARN} learn, {ex.BASE} base, {ex.QUERIES} queries, "
+        "and its exact top-10)", lambda: ex.load_or_synthesize(None, device), secs)
+    check(name == "synthetic" and query.device == device, "example: data")
+    index, seconds = ex.build(learn, base)
+    labels = ctx.drive("example", lambda: ex.search(index, query)[1]).cpu().numpy()
+    rec = recall_at_r(labels, gt)
+    seen = profiled_kernels("example", lambda: ex.search(index, query))
+    print(f"example: recall@{R} {rec} over {query.shape[0]} queries in one search (floor "
+          f"{EXAMPLE_FLOOR}; the JAX example on the CPU: 0.7930); stage seconds "
+          f"{json.dumps(seconds)} [{card}]", flush=True)
+    check(rec >= EXAMPLE_FLOOR, f"example: recall@{R} {rec} below {EXAMPLE_FLOOR}")
+    out["example"] = {"recall": rec, "seconds": {**secs, **seconds}, "profiled": seen,
+                      "part_pad": index.part_pad}
+    del learn, base, query, index
+
+    # ---- (b) the GIST1M geometry ---------------------------------------------
+    t0 = time.perf_counter()
+    gbase_np, gq_np = gist_moment_like(np.random.default_rng(0), GIST_N, nq=GIST_NQ)
+    draw_s = time.perf_counter() - t0
+    print(f"gist data: gist_moment_like {GIST_N} x {gbase_np.shape[1]} + {GIST_NQ} queries "
+          f"(host): {draw_s:.2f} s", flush=True)
+    gbase = torch.from_numpy(gbase_np).to(device)
+    gq = torch.from_numpy(gq_np).to(device)
+    del gbase_np, gq_np
+    secs = {"draw_host": draw_s}
+    ggt = timed_s(f"gist ground truth (exact 1-NN of {GIST_NQ} queries)",
+                  lambda: assign_nearest(gq, gbase), secs).cpu().numpy()
+    glearn = gbase[:GIST_LEARN]
+
+    opq_kw = dict(opq_iters=6, kmeans_iters=12)
+    g168 = timed_s(f"train_opq 16x8 (opq_iters 6, kmeans_iters 12, {GIST_LEARN} x 960)",
+                   lambda: train_opq(20, glearn, 16, 8, **opq_kw), secs)
+    g324 = timed_s("train_opq 32x4", lambda: train_opq(21, glearn, 32, 4, **opq_kw), secs)
+    gcoarse = timed_s("train_coarse 256 (iters 25, balance_cap 3.0)",
+                      lambda: ivf.train_coarse(22, glearn, 256, iters=25, balance_cap=3.0), secs)
+    gres = glearn - gcoarse[assign_nearest(glearn, gcoarse).long()]
+    r168 = timed_s("train_opq 16x8 on residuals", lambda: train_opq(23, gres, 16, 8, **opq_kw), secs)
+    r324 = timed_s("train_opq 32x4 on residuals", lambda: train_opq(24, gres, 32, 4, **opq_kw), secs)
+    del gres
+    g = {
+        "flat_16x8": timed_s(f"build flat 16x8, {GIST_N}", lambda: flat.add(
+            flat.FlatIndex.create(g168), gbase), secs),
+        "flat_32x4": timed_s(f"build flat 32x4, {GIST_N}", lambda: flat.add(
+            flat.FlatIndex.create(g324), gbase), secs),
+        "ivf_16x8": timed_s(f"build IVF-256 16x8, {GIST_N}", lambda: ivf.add(
+            ivf.IVFIndex.create(r168, gcoarse), gbase), secs),
+        "ivf_32x4": timed_s(f"build IVF-256 32x4, {GIST_N}", lambda: ivf.add(
+            ivf.IVFIndex.create(r324, gcoarse), gbase), secs),
+    }
+    del gbase, glearn
+    for nm in ("ivf_16x8", "ivf_32x4"):
+        ix = g[nm]
+        check(ix.n == GIST_N and int(ix.part_sizes.sum()) == GIST_N, f"gist {nm}: code count")
+        print(f"gist {nm}: part_pad {ix.part_pad}, largest partition {ix.max_part_size}, "
+              f"smallest {int(ix.part_sizes.min())}", flush=True)
+    flat_keep = max(200 / GIST_N, 0.00213)
+    gist_runs = {
+        "gist_flat_adc8": lambda qs, k=lut_scan.DISPATCH: flat.search_adc(
+            g["flat_16x8"], qs, r=R, kernels=k),
+        "gist_flat_qadc": lambda qs, k=lut_scan.DISPATCH: flat.search_qadc(
+            g["flat_32x4"], qs, r=R, keep=flat_keep, kernels=k),
+        "gist_ivf_adc8": lambda qs, k=lut_scan.DISPATCH: ivf.search_adc(
+            g["ivf_16x8"], qs, r=R, ma=MA, kernels=k),
+        "gist_ivf_qadc": lambda qs, k=lut_scan.DISPATCH: ivf.search_qadc(
+            g["ivf_32x4"], qs, r=R, ma=MA, keep=GIST_IVF_KEEP, kernels=k),
+        "gist_ivf_qadc_norerank": lambda qs, k=lut_scan.DISPATCH: ivf.search_qadc(
+            g["ivf_32x4"], qs, r=R, ma=MA, keep=GIST_IVF_KEEP, rerank=False, kernels=k),
+    }
+    recalls = {p: recall_in_batches(p, fn, gq, ggt, TRAIN_BATCH) for p, fn in gist_runs.items()}
+    recalls["gist_ivf_qadc_b1"] = recall_in_batches("gist_ivf_qadc_b1", gist_runs["gist_ivf_qadc"],
+                                                    gq, ggt, 1)
+    check(ctx.launches["gist_ivf_qadc_b1"]["grouped_scan"] == 0, "gist b=1: M1 launched")
+    for p in PROFILED_KERNELS:
+        if p.startswith("gist_"):
+            b = 128 if p.endswith("b128") else 1 if p.endswith("b1") else TRAIN_BATCH
+            run = gist_runs[p.replace("_b128", "").replace("_b1", "")]
+            out.setdefault("gist_profiled", {})[p] = profiled_kernels(p, lambda: run(gq[:b]))
+    for p, fn in gist_runs.items():
+        for b in (32, 128):
+            ctx.e2e(p, b, lambda: fn(gq[:b]))
+    ctx.e2e("gist_ivf_qadc", 1, lambda: gist_runs["gist_ivf_qadc"](gq[:1]))
+
+    # The kernels at the GIST widths, at the arguments the searches hand them:
+    # a Kernels whose entries keep their arguments (and call the real ones).
+    def recorded(run, *fields):
+        calls = {f: [] for f in fields}
+
+        def keeping(f):
+            real = getattr(lut_scan.DISPATCH, f)
+
+            def fn(*args):
+                calls[f].append(args)
+                return real(*args)
+            return fn
+
+        run(lut_scan.DISPATCH._replace(**{f: keeping(f) for f in fields}))
+        torch.cuda.synchronize()
+        return [calls[f] for f in fields]
+
+    def exact(what):
+        def compare(got, want):
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            check(all(a is b is None or torch.equal(a, b) for a, b in pairs),
+                  f"{what} differs from its plain version")
+            return 0.0
+        return compare
+
+    def minima_err(what):  # float minima rtol 1e-6, ids equal where minima are
+        def compare(got, want):
+            (gv, gi), (wv, wi) = got, want
+            err = inf_float_err(torch, gv, wv, f"{what} minima")
+            check(torch.equal(gi[gv == wv], wi[gv == wv]), f"{what} argmin ids")
+            return err
+        return compare
+
+    def row(name, cu_name, src, replaces, fn, plain, compare, moved, ops, peak, path):
+        ctx.kernel_phase(name, cu_name, f"qadc_tpu_torch/csrc/{src}",
+                         f"qadc_tpu/kernels/lut_scan.py:{replaces}", fn, plain, compare,
+                         moved, ops, peak, path=path)
+
+    def flat_row(name, cu_name, src, replaces, fn, plain, compare, args, path):
+        codes, tables, n = args[:3]   # codes and tables once; a sum a (query, code, sq)
+        peak = PEAK_INT8 if tables.dtype == torch.int8 else PEAK_F32
+        row(name, cu_name, src, replaces, lambda: fn(*args), lambda: plain(*args), compare,
+            nbytes(codes, tables), tables.shape[0] * n * tables.shape[1], peak, path)
+
+    def grouped_row(name, cu_name, src, replaces, fn, plain, compare, ix, qs, args, path):
+        probes = ivf.assign_queries(ix, qs, MA)[0].reshape(-1).long()
+        moved = (torch.unique(probes).numel() * ix.codes.shape[1] * 128
+                 + nbytes(*args[1:]))  # each probed partition once, tables, routing
+        adds = int(ix.part_sizes[probes].sum()) * ix.pq.sq_count
+        row(name, cu_name, src, replaces, lambda: fn(*args), lambda: plain(*args), compare,
+            moved, adds, PEAK_INT8 if args[1].dtype == torch.int8 else PEAK_F32, path)
+
+    def m2_rows(tag, calls, path):
+        check(len(calls) == 2, f"{tag}: {len(calls)} rows_adc launches, not 2")
+        for stage, args in zip(("keep-prefix", "rerank"), calls):
+            row_ids, pair_ids, tlo = args[1], args[2], args[3]
+            cpr = 128 // (tlo.shape[1] // 16)
+            moved = (torch.unique(row_ids).numel() * 128 + nbytes(row_ids, pair_ids)
+                     + torch.unique(pair_ids).numel() * 2 * tlo.shape[1] * 4)
+            row(f"rows_adc[{tag} {stage} A={row_ids.shape[0]}]", "rows_adc_kernel",
+                "rows_adc.cu", 1148, lambda args=args: lut_scan.rows_adc(*args),
+                lambda args=args: lut_scan.rows_adc_plain(*args), exact("rows_adc"),
+                moved, row_ids.shape[0] * cpr * (tlo.shape[1] // 8), PEAK_F32, path)
+
+    q32, q128 = gq[:32], gq[:128]
+    (f8,) = recorded(lambda k: gist_runs["gist_flat_adc8"](q32, k), "flat_scan8")
+    flat_row("flat_scan8[gist m=16 b=32]", "flat_scan8_qm_kernel", "flat_scan8_qm.cuh", 1601,
+             lut_scan.flat_scan8, lut_scan.flat_scan8_plain, minima_err("flat_scan8"), f8[0],
+             "gist_flat_adc8")
+    for qs, tag, cu_name, src in ((q128, "b=128", "flat_scan_wgmma_kernel", "scan_wgmma.cu"),
+                                  (q32, "b=32", "flat_scan_mma_kernel", "scan_mma.cu")):
+        fs, m2 = recorded(lambda k: gist_runs["gist_flat_qadc"](qs, k), "flat_scan", "rows_adc")
+        flat_row(f"flat_scan[gist cb=16 {tag}]", cu_name, src, 522, lut_scan.flat_scan,
+                 lut_scan.flat_scan_plain, exact("flat_scan"), fs[0], "gist_flat_qadc")
+        if tag == "b=128":
+            m2_rows("gist flat b=128", m2, "gist_flat_qadc")
+    (g8,) = recorded(lambda k: gist_runs["gist_ivf_adc8"](q32, k), "grouped_scan8")
+    grouped_row("grouped_scan8[gist m=16 b=32]", "grouped_scan8_sm_kernel", "grouped_scan8_sm.cu",
+                1872, lut_scan.grouped_scan8, lut_scan.grouped_scan8_plain,
+                minima_err("grouped_scan8"), g["ivf_16x8"], q32, g8[0], "gist_ivf_adc8")
+    for qs, tag in ((q32, "b=32"), (q128, "b=128")):
+        m1, m2 = recorded(lambda k: gist_runs["gist_ivf_qadc"](qs, k), "grouped_scan", "rows_adc")
+        grouped_row(f"grouped_scan[gist cb=16 {tag}]", "grouped_scan_mma_kernel", "scan_mma.cu",
+                    857, lut_scan.grouped_scan, lut_scan.grouped_scan_plain, exact("grouped_scan"),
+                    g["ivf_32x4"], qs, m1[0], "gist_ivf_qadc")
+        m2_rows(f"gist ivf {tag}", m2, "gist_ivf_qadc")
+    (m3,) = recorded(lambda k: ivf.search_qadc(g["ivf_32x4"], gq[:1], r=R, ma=MA,
+                                               keep=GIST_IVF_KEEP, direct=True, kernels=k),
+                     "direct_scan")
+    ctx.m3_phases(g["ivf_32x4"], "gist b=1", m3[0], "gist_ivf_qadc_b1")
+    out["gist"] = {"recall": recalls, "seconds": secs,
+                   "part_pad": g["ivf_32x4"].part_pad, "n": GIST_N, "nq": GIST_NQ}
+    del g, gq, gcoarse
+    torch.cuda.empty_cache()
+
+    # ---- (c) 16-bit training -------------------------------------------------
+    base = torch.from_numpy(sift["base_np"]).to(device)
+    learn = base[:SIXTEEN_LEARN]
+    seeding = []
+    seed_fn = kmeans_mod.kmeans_plusplus_init
+
+    def timed_seeding(*args, **kw):  # k-means++ alone, inside train_pq
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c = seed_fn(*args, **kw)
+        torch.cuda.synchronize()
+        seeding.append(time.perf_counter() - t)
+        return c
+
+    sixteen = {}
+    kmeans_mod.kmeans_plusplus_init = timed_seeding
+    try:
+        for nm, data in (("flat", lambda: learn),
+                         ("ivf", lambda: learn - sift["coarse"][
+                             assign_nearest(learn, sift["coarse"]).long()])):
+            x = data()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            before = torch.cuda.memory_allocated(device)
+            t = time.perf_counter()
+            q16 = train_pq(30 + len(sixteen), x, 8, 16, iters=SIXTEEN_ITERS)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated(device) - before
+            check(bool(torch.isfinite(q16.centroids).all()), f"8x16 {nm}: centroids")
+            sixteen[nm] = {"pq": q16, "train_s": sec, "seeding_s": seeding[-1],
+                           "peak_bytes": peak}
+            print(f"train_pq 8x16 ({nm}: {SIXTEEN_LEARN} vectors{', residuals' if nm == 'ivf' else ''}, "
+                  f"iters {SIXTEEN_ITERS}): {sec:.2f} s, k-means++ seeding of 65,536 centroids "
+                  f"{seeding[-1]:.2f} s, peak device memory {peak / 2**30:.2f} GiB over "
+                  f"{before / 2**30:.2f} GiB held [{card}]", flush=True)
+            del x
+    finally:
+        kmeans_mod.kmeans_plusplus_init = seed_fn
+    build_s = {}
+    i16 = {
+        "flat": timed_s(f"build flat 8x16, {base.shape[0]}", lambda: flat.add(
+            flat.FlatIndex.create(sixteen["flat"]["pq"]), base), build_s),
+        "ivf": timed_s(f"build IVF-256 8x16, {base.shape[0]}", lambda: ivf.add(
+            ivf.IVFIndex.create(sixteen["ivf"]["pq"], sift["coarse"]), base), build_s),
+    }
+    del base, learn
+    tq, floor = sift["tq"], sift["floor"]
+    for nm, run in (("sixteen_flat", lambda qs: flat.search_adc(i16["flat"], qs, r=R)),
+                    ("sixteen_ivf", lambda qs: ivf.search_adc(i16["ivf"], qs, r=R, ma=MA))):
+        rec = recall_in_batches(nm, run, tq, sift["gt"], TRAIN_BATCH)
+        check(rec >= floor, f"{nm}: recall@{R} {rec} below flat 8x8 OPQ ADC's {floor}")
+        sixteen[nm.split("_")[1]]["recall"] = rec
+        ctx.e2e(nm, TRAIN_BATCH, lambda: run(tq[:TRAIN_BATCH]))
+    out["sixteen"] = {k: {kk: vv for kk, vv in v.items() if kk != "pq"}
+                      for k, v in sixteen.items()}
+    out["sixteen"]["floor"] = floor
+    out["sixteen"]["build_s"] = build_s
+    print(json.dumps({"surface": out, "card": card}), flush=True)
+    return out
 
 
 def oracle(torch, index, queries, code_view, unpack_codes, ivf):

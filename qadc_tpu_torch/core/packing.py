@@ -16,6 +16,17 @@ import torch
 SUPPORTED_BITS = (4, 8, 16)
 
 
+def code_bytes(sq_count: int, sq_bits: int) -> int:
+    """Bytes of one packed code (the reference's base_pq::code_size,
+    quantizers.hpp:197-199). Raises ValueError for an unsupported sq_bits or
+    a code that does not fill whole bytes."""
+    if sq_bits not in SUPPORTED_BITS:
+        raise ValueError(f"sq_bits must be one of {SUPPORTED_BITS}, got {sq_bits}")
+    if (sq_count * sq_bits) % 8 != 0:
+        raise ValueError(f"sq_count*sq_bits must be a multiple of 8 ({sq_count}x{sq_bits})")
+    return sq_count * sq_bits // 8
+
+
 def pack_codes(indices: torch.Tensor, sq_bits: int = 4) -> torch.Tensor:
     """(..., sq_count) centroid indices < 2**sq_bits -> (..., code_size) uint8."""
     if sq_bits == 4:
@@ -63,3 +74,17 @@ def gather_codes_row128(rows128: torch.Tensor, code_ids: torch.Tensor,
     view of the storage (core/layout.code_view).
     """
     return rows128.reshape(-1, code_size)[code_ids.long()]
+
+
+def row128_to_codes(rows: torch.Tensor, code_size: int) -> torch.Tensor:
+    """(R, 128) uint8 storage rows -> (R * cpr, code_size) packed codes, a
+    view of the same bytes (the inverse of core/layout.to_row128)."""
+    return rows.reshape(rows.shape[0] * (128 // code_size), code_size)
+
+
+def unpack_nibbles_split(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) nibble planes of packed 4-bit codes, each (..., code_bytes)
+    int32: the even sub-quantizers' indices and the odd ones', not
+    interleaved."""
+    p = packed.to(torch.int32)
+    return p & 0x0F, p >> 4

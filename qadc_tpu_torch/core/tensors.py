@@ -16,6 +16,20 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
+# Transient bytes of one chunk on the CPU (see scratch_budget).
+CPU_SCRATCH_BYTES = 1 << 30
+
+
+def scratch_budget(device) -> int:
+    """Bytes the transients of one chunk of a chunked computation may take
+    on `device` (the k-means assignment's scores, the 16-bit encode's
+    distances): a quarter of the card's free memory, or CPU_SCRATCH_BYTES.
+    The chunking never changes a result, only how much is held."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[0] // 4
+    return CPU_SCRATCH_BYTES
+
 
 def as_f32(x, device=DEFAULT_DEVICE) -> torch.Tensor:
     """x as a float32 tensor: a tensor keeps its device, anything else is

@@ -20,6 +20,10 @@ import torch.distributed as dist
 
 from qadc_tpu_torch.core.tensors import DEFAULT_DEVICE
 
+# Name of the mesh's one axis (the JAX package's mesh axis and PartitionSpec
+# name; the port's meshes are 1-D and carry no axis names).
+SHARD_AXIS = "shard"
+
 # How long a rendezvous or a collective may wait for a peer before it raises.
 TIMEOUT = datetime.timedelta(seconds=300)
 

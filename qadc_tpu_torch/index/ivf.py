@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -202,6 +203,33 @@ def tile_tables_rows(tables_qa3: torch.Tensor):
             tod.reshape(qa, 16 * cb).contiguous())
 
 
+def rows_adc(rows: torch.Tensor, tlo_c: torch.Tensor, thi_c: torch.Tensor,
+             cb: int) -> torch.Tensor:
+    """Exact float ADC distances of whole row128 storage rows, each row with
+    its own compact tables.
+
+    Args:
+      rows: (A, 128) uint8 packed 4-bit codes, cpr = 128 / cb a row.
+      tlo_c, thi_c: (A, 16*cb) float32 compact tables of each row
+        (tile_tables_rows, gathered to row granularity).
+      cb: code bytes.
+
+    Returns:
+      (A, cpr) float32, one distance a code, summed in float32 over
+      b = 0..cb-1, low nibble then high.
+
+    This is M2 (kernels.rows_adc) with row i scored against table row i: the
+    rows are its whole storage and the ids are the identity, so nothing is
+    copied (a non-contiguous argument is made contiguous first). On the CPU
+    M2's plain version runs.
+    """
+    if tlo_c.shape[-1] != 16 * cb or thi_c.shape != tlo_c.shape:
+        raise ValueError(f"compact tables must be (A, {16 * cb}), got {tuple(tlo_c.shape)}")
+    ids = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+    return DISPATCH.rows_adc(rows.contiguous(), ids, ids, tlo_c.contiguous(),
+                             thi_c.contiguous())
+
+
 def _quantized_tables(index: IVFIndex, queries, r: int, ma: int, keep: float,
                       prefix_pad: int, kernels: Kernels, bound_override=None):
     """Shared front half: assign, tables, keep-prefix bound, int8 quantize.
@@ -268,7 +296,11 @@ SCAN_BUDGET_BYTES = 2 << 30
 @functools.cache
 def _default_scan_budget(device: torch.device) -> int:
     """35% of the card's memory, floored at SCAN_BUDGET_BYTES (the floor on
-    the CPU)."""
+    the CPU). QADC_SCAN_BUDGET_BYTES, where set, overrides both. Read once
+    a device and cached (the flat index's default goes through here too)."""
+    env = os.environ.get("QADC_SCAN_BUDGET_BYTES")
+    if env:
+        return int(env)
     if device.type == "cuda":
         _, total = torch.cuda.mem_get_info(device)
         return max(SCAN_BUDGET_BYTES, int(total * 0.35))

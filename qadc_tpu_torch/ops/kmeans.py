@@ -14,6 +14,10 @@ different streams on the CPU and on CUDA, and neither gives JAX's: results
 are held to the JAX package by property (quantization error, balance), and
 step by step from a given state.
 
+Assignment walks the data in chunks of vectors, and of centroids where a
+chunk's scores against all K would not fit (16-bit codebooks, K = 65,536),
+sized by core/tensors.scratch_budget; the result is the unchunked one.
+
 Segment sums: at K <= ONE_HOT_MAX_K the update is a one-hot GEMM in full
 float32, whose result does not change from run to run; above it (16-bit
 codebooks) it is index_add_, whose float sum order on CUDA does. Either way
@@ -26,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from qadc_tpu_torch.core.tensors import (DEFAULT_DEVICE, as_f32, as_generator,
-                                         full_f32_matmul, to_f32)
+                                         full_f32_matmul, scratch_budget, to_f32)
 from qadc_tpu_torch.ops.knn import _neg_scores
 
 DEFAULT_ITERS = 50  # reference kmeans_iter_max (databases.cpp:92): 2 cv + 48 Lloyd
@@ -34,28 +38,81 @@ DEFAULT_ITERS = 50  # reference kmeans_iter_max (databases.cpp:92): 2 cv + 48 Ll
 ONE_HOT_MAX_K = 256
 
 
+def _chunk_shape(b: int, n: int, k: int, budget: int) -> tuple[int, int]:
+    """(vectors, centroids) of one assignment chunk: its (B, n, k) float32
+    scores and their one temporary take at most `budget` bytes where one
+    vector against one centroid allows it. Whole K first, then fewer
+    vectors, then fewer centroids."""
+    per = max(1, budget // (8 * b))        # score entries a chunk
+    kc = min(k, per)
+    return max(1, min(n, per // kc)), kc
+
+
 def _assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """(B, N) int64 nearest centroid; ties to the lower index (first maximum)."""
-    return torch.argmax(_neg_scores(x, c), dim=-1)
+    """(B, N) int64 nearest centroid of (B, N, dim) data among (B, K, dim)
+    centroids (or (N,) of (N, dim) among (K, dim)); ties to the lower index.
+
+    The data is walked in chunks of vectors and, where one chunk's scores
+    against all K would pass the budget (core/tensors.scratch_budget), of
+    centroids. Each score is computed as the unchunked product computes it,
+    and a later chunk of centroids replaces the running best only on a
+    strictly larger score, so the result is the unchunked argmax's (first
+    maximum) whatever the chunks.
+    """
+    if x.dim() == 2:
+        return _assign(x[None], c[None])[0]
+    b, n, _ = x.shape
+    k = c.shape[1]
+    nc, kc = _chunk_shape(b, n, k, scratch_budget(x.device))
+    out = torch.empty((b, n), dtype=torch.int64, device=x.device)
+    for s in range(0, n, nc):
+        xs = x[:, s:s + nc]
+        best = arg = None
+        for o in range(0, k, kc):
+            sc = _neg_scores(xs, c[:, o:o + kc])
+            i = torch.argmax(sc, dim=-1)
+            v = torch.gather(sc, 2, i[..., None])[..., 0]
+            if best is None:
+                best, arg = v, i
+            else:
+                upd = v > best
+                best = torch.where(upd, v, best)
+                arg = torch.where(upd, i + o, arg)
+        out[:, s:s + nc] = arg
+    return out
 
 
 def _lloyd_step(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """One Lloyd update of (B, K, dim) centroids over (B, N, dim) data."""
+    """One Lloyd update of (B, K, dim) centroids over (B, N, dim) data.
+
+    At K <= ONE_HOT_MAX_K the sums are one one-hot GEMM over all N (a
+    chunked sum would add in another order; the one-hot takes 1 KiB a
+    vector and sub-space at most). Above it each chunk of vectors is
+    assigned and index_add_-ed in turn: every cluster receives its vectors
+    in the same order as unchunked, so the CPU's sequential sums are the
+    same bit for bit (on CUDA index_add_'s order varies from run to run
+    either way).
+    """
     b, n, _ = x.shape
     k = c.shape[1]
-    assign = _assign(x, c)
     if k <= ONE_HOT_MAX_K:
+        assign = _assign(x, c)
         onehot = torch.zeros((b, n, k), dtype=torch.float32, device=x.device)
         onehot.scatter_(2, assign[..., None], 1.0)
         counts = onehot.sum(dim=1)
         with full_f32_matmul():
             sums = torch.bmm(onehot.transpose(1, 2), x)
     else:
-        flat = (assign + torch.arange(b, device=x.device)[:, None] * k).reshape(-1)
+        nc = _chunk_shape(b, n, k, scratch_budget(x.device))[0]
+        offset = torch.arange(b, device=x.device)[:, None] * k
         counts = torch.zeros(b * k, dtype=torch.float32, device=x.device)
-        counts.index_add_(0, flat, torch.ones(b * n, dtype=torch.float32, device=x.device))
         sums = torch.zeros((b * k, x.shape[2]), dtype=torch.float32, device=x.device)
-        sums.index_add_(0, flat, x.reshape(b * n, -1))
+        for s in range(0, n, nc):
+            xs = x[:, s:s + nc]
+            flat = (_assign(xs, c) + offset).reshape(-1)
+            counts.index_add_(0, flat, torch.ones(flat.shape[0], dtype=torch.float32,
+                                                  device=x.device))
+            sums.index_add_(0, flat, xs.reshape(-1, x.shape[2]))
         counts, sums = counts.reshape(b, k), sums.reshape(b, k, -1)
     new = sums / torch.clamp(counts, min=1.0)[..., None]
     return torch.where(counts[..., None] > 0, new, c)

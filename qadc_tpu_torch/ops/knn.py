@@ -14,7 +14,10 @@ def _neg_scores(queries: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
     b2 = torch.sum(base * base, dim=-1)
     with full_f32_matmul():
         cross = torch.matmul(queries, base.transpose(-1, -2))
-    return 2.0 * cross - b2[..., None, :]
+    # One pass, -b2 + 2 cross: the same float32 value as 2.0 * cross - b2
+    # (doubling is exact), without the doubled product's own pass over the
+    # (.., Q, N) scores.
+    return torch.add(-b2[..., None, :], cross, alpha=2.0)
 
 
 def exact_knn(queries: torch.Tensor, base: torch.Tensor, k: int):

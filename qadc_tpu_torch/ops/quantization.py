@@ -9,20 +9,32 @@ from __future__ import annotations
 
 import torch
 
+# A bound above this means the keep-prefix held fewer than r codes: the
+# reference exits there ("Try larger keep value", db_query_4.cpp:271-274);
+# clamp_bound_to_max_distance replaces such a bound instead.
+QMAX_GUARD = 1e30
+
 
 def clamp_bound_to_max_distance(bound: torch.Tensor, max_possible: torch.Tensor):
     """Replace non-finite bounds by the query's largest possible distance."""
     return torch.where(torch.isfinite(bound), bound, max_possible * (1.0 + 1e-6))
 
 
-def quantize_tables_int8(tables: torch.Tensor, qmax, qmin) -> torch.Tensor:
+def quantize_tables_int8(tables: torch.Tensor, qmax, qmin=None) -> torch.Tensor:
     """Quantize float ADC tables to int8 in [0, 127] per QuantizerMAX.
 
     Args:
-      tables: (..., M, K) float32.
-      qmax, qmin: per-query bounds broadcastable to tables.
+      tables: (..., M, K) float32: one query's tables, or batched over
+        queries with qmax and qmin broadcast to them.
+      qmax: per-query upper bound, broadcastable to tables.
+      qmin: per-query lower bound; defaults to max(0, min(tables)) over the
+        whole tensor (pass it when batching over queries).
     """
     tables = torch.clamp(tables.to(torch.float32), min=0.0)
+    if qmin is None:
+        qmin = tables.min()  # already >= 0
+    qmax = torch.as_tensor(qmax, dtype=torch.float32, device=tables.device)
+    qmin = torch.as_tensor(qmin, dtype=torch.float32, device=tables.device)
     delta = (qmax - qmin) / 127.0
     scaled = (tables - qmin) / torch.clamp(delta, min=1e-30)
     # Truncation toward zero, then clip to [0, 127]; clamping before the

@@ -15,6 +15,27 @@ import torch.nn.functional as F
 SORT_TOPK_MAX_C = 1024
 
 
+def window_min_reduce(dists: torch.Tensor, window: int, base_index: int = 0):
+    """Minimum and argmin of each window of `window` consecutive codes.
+
+    Args:
+      dists: (N, Q) distances, codes along the leading axis.
+      window: W, must divide N.
+      base_index: global id of code 0 (added to the returned ids).
+
+    Returns:
+      (vals (N // W, Q), ids (N // W, Q) int32): each window's smallest
+      distance and the global id of its first code at that distance.
+    """
+    n, q = dists.shape
+    if n % window != 0:
+        raise ValueError(f"window {window} must divide N={n}")
+    g = n // window
+    vals, arg = torch.min(dists.reshape(g, window, q), dim=1)
+    first = torch.arange(g, dtype=torch.int32, device=dists.device)[:, None] * window
+    return vals, arg.to(torch.int32) + first + base_index
+
+
 def _sort_with(v: torch.Tensor, payload: torch.Tensor):
     """Stable ascending sort of v along the last axis, carrying payload."""
     sv, order = torch.sort(v, dim=-1, stable=True)

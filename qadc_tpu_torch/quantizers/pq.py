@@ -14,8 +14,8 @@ import math
 
 import torch
 
-from qadc_tpu_torch.core.packing import SUPPORTED_BITS, pack_codes, unpack_codes
-from qadc_tpu_torch.core.tensors import DEFAULT_DEVICE, as_f32, full_f32_matmul
+from qadc_tpu_torch.core.packing import SUPPORTED_BITS, code_bytes, pack_codes, unpack_codes
+from qadc_tpu_torch.core.tensors import DEFAULT_DEVICE, as_f32, full_f32_matmul, scratch_budget
 from qadc_tpu_torch.ops.kmeans import DEFAULT_ITERS, kmeans
 
 
@@ -36,6 +36,10 @@ class ProductQuantizer:
         return self.centroids.shape[0]
 
     @property
+    def sq_centroid_count(self) -> int:
+        return self.centroids.shape[1]
+
+    @property
     def sq_dim(self) -> int:
         return self.centroids.shape[2]
 
@@ -45,12 +49,7 @@ class ProductQuantizer:
 
     @property
     def code_size(self) -> int:
-        if (self.sq_count * self.sq_bits) % 8 != 0:
-            raise ValueError(
-                f"sq_count*sq_bits must be a multiple of 8 "
-                f"({self.sq_count}x{self.sq_bits})"
-            )
-        return self.sq_count * self.sq_bits // 8
+        return code_bytes(self.sq_count, self.sq_bits)
 
     def validate(self) -> "ProductQuantizer":
         """Raise ValueError unless sq_bits is supported, the codebooks hold
@@ -59,7 +58,7 @@ class ProductQuantizer:
             raise ValueError(f"sq_bits must be in {SUPPORTED_BITS}")
         if self.centroids.shape[1] != (1 << self.sq_bits):
             raise ValueError(f"centroid count {self.centroids.shape[1]} != 2^{self.sq_bits}")
-        _ = self.code_size
+        code_bytes(self.sq_count, self.sq_bits)
         return self
 
     def rotate(self, vectors: torch.Tensor) -> torch.Tensor:
@@ -96,7 +95,8 @@ def train_pq(generator, x, sq_count: int, sq_bits: int, iters: int = DEFAULT_ITE
 # Centroids scored at a time by a wide-codebook encode: at K <= ENCODE_K_CHUNK
 # (4- and 8-bit codebooks) one (N, M, K) float32 distance tensor is built; a
 # 16-bit codebook (K = 65536) runs as a loop over K chunks with a running
-# (best distance, best index), whose transient is N * M * ENCODE_K_CHUNK * 4 B.
+# (best distance, best index), over chunks of vectors whose two
+# (n, M, ENCODE_K_CHUNK) float32 transients fit core/tensors.scratch_budget.
 ENCODE_K_CHUNK = 4096
 
 
@@ -113,18 +113,25 @@ def encode_indices(pq: ProductQuantizer, vectors: torch.Tensor) -> torch.Tensor:
     c = pq.centroids
     k = c.shape[1]
 
-    def dists(cc):  # (M, kc, dsq) -> (N, M, kc): ||c||^2 - 2 x.c
+    def dists(xs, cc):  # (n, M, dsq), (M, kc, dsq) -> (n, M, kc): ||c||^2 - 2 x.c
         with full_f32_matmul():
-            cross = torch.einsum("nmd,mkd->nmk", sub, cc)
+            cross = torch.einsum("nmd,mkd->nmk", xs, cc)
         return torch.sum(cc * cc, dim=-1)[None] - 2.0 * cross
 
     if k <= ENCODE_K_CHUNK:
-        return torch.argmin(dists(c), dim=-1).to(torch.int32)
+        return torch.argmin(dists(sub, c), dim=-1).to(torch.int32)
     kc = math.gcd(k, ENCODE_K_CHUNK)
+    nc = max(1, scratch_budget(sub.device) // (8 * pq.sq_count * kc))
+    return torch.cat([_encode_wide(dists, sub[s:s + nc], c, kc)
+                      for s in range(0, sub.shape[0], nc)])
+
+
+def _encode_wide(dists, sub: torch.Tensor, c: torch.Tensor, kc: int) -> torch.Tensor:
+    """encode_indices of a wide codebook over chunks of kc centroids."""
     bd = torch.full(sub.shape[:2], torch.inf, dtype=torch.float32, device=sub.device)
     bi = torch.zeros(sub.shape[:2], dtype=torch.int32, device=sub.device)
-    for off in range(0, k, kc):
-        d = dists(c[:, off:off + kc])
+    for off in range(0, c.shape[1], kc):
+        d = dists(sub, c[:, off:off + kc])
         i = torch.argmin(d, dim=-1)
         dm = torch.gather(d, 2, i[..., None])[..., 0]
         upd = dm < bd

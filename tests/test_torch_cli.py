@@ -28,10 +28,12 @@ from qadc_tpu_torch.cli.main import main
 from qadc_tpu_torch.io.checkpoint import load_index
 from qadc_tpu_torch.io.vecs import load_vectors
 from qadc_tpu_torch.ops.knn import assign_nearest
+from torch_threads import ONE_THREAD_ENV, pin_one_thread
 
 # The suite runs in several worker processes on shared cores; one PyTorch
-# thread per worker keeps each from crowding the others.
-torch.set_num_threads(1)
+# thread per worker (and per process it starts) keeps each from crowding
+# the others.
+pin_one_thread()
 
 CPU = ["--device", "cpu"]
 QADC_HEADER = "r,recall,ma,adc_type,keep,index_us,rotate_us,table_us,scan_us"
@@ -115,7 +117,7 @@ def test_info_is_the_same_text_in_both_clis(dataset, capsys):
 def test_info_runs_as_a_module(dataset):
     idx = str(dataset["tmp"] / "module_idx")
     main(["create-flat", idx, "--train", dataset["learn"], "--sq", "8x4", *CPU])
-    env = {**os.environ, "PYTHONPATH": REPO}
+    env = {**os.environ, "PYTHONPATH": REPO, **ONE_THREAD_ENV}
     out = subprocess.run([sys.executable, "-m", "qadc_tpu_torch.cli.main", "info", idx, *CPU],
                          capture_output=True, text=True, env=env, timeout=120, check=True)
     assert out.stdout.splitlines() == [

@@ -947,3 +947,76 @@ def test_grouped_lab_on_card(cuda):
     scan_lab.check_grouped(f32, u8)
     torch.cuda.synchronize()
     assert lut_scan.launches["scan_lab"] == before + len(scan_lab.GROUPED_LAB_MODES)
+
+
+@pytest.mark.parametrize("cb", [8, 16])
+@pytest.mark.parametrize("a", [1, 37, 3000])
+def test_ivf_rows_adc_on_card(cuda, cb, a):
+    """ivf.rows_adc (the JAX package's row-granular exact ADC) launches M2
+    with the identity ids, bit for bit its plain version."""
+    g = np.random.default_rng(cb + a)
+    rows = torch.from_numpy(g.integers(0, 256, (a, 128), dtype=np.uint8))
+    tlo = torch.from_numpy(g.random((a, 16 * cb)).astype(np.float32))
+    thi = torch.from_numpy(g.random((a, 16 * cb)).astype(np.float32))
+    want = ivf.rows_adc(rows, tlo, thi, cb)
+    before = lut_scan.launches["rows_adc"]
+    got = ivf.rows_adc(rows.to(cuda), tlo.to(cuda), thi.to(cuda), cb)
+    torch.cuda.synchronize()
+    assert lut_scan.launches["rows_adc"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k,per", [(256, 3000), (65536, 40_000)])
+def test_chunked_kmeans_steps_on_card(cuda, monkeypatch, k, per):
+    """ops/kmeans.py's assignment and Lloyd step on the card: many chunks of
+    vectors and centroids equal one chunk (assignments exactly; at K > 256
+    the update's index_add_ sums in a run-dependent order on CUDA, so its
+    centroids are held to rtol 1e-5)."""
+    import importlib
+
+    tkm = importlib.import_module("qadc_tpu_torch.ops.kmeans")
+    g = np.random.default_rng(k)
+    x = torch.from_numpy(g.normal(size=(4, 5000, 16)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(g.normal(size=(4, k, 16)).astype(np.float32)).to(cuda)
+    c[:, -1] = c[:, 1]                                   # a tie across chunks
+    small = 8 * 4 * per
+    assert tkm._chunk_shape(4, 5000, k, small) != (5000, k)
+    monkeypatch.setattr(tkm, "scratch_budget", lambda device: 1 << 40)
+    want_a, want = tkm._assign(x, c), tkm._lloyd_step(x, c)
+    monkeypatch.setattr(tkm, "scratch_budget", lambda device: small)
+    got_a, got = tkm._assign(x, c), tkm._lloyd_step(x, c)
+    assert torch.equal(got_a, want_a)
+    if k <= tkm.ONE_HOT_MAX_K:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_sixteen_bit_encode_chunks_on_card(cuda, monkeypatch):
+    """The 16-bit encode in chunks of vectors under a small scratch budget
+    equals one chunk, on the card."""
+    from qadc_tpu_torch.quantizers import pq
+
+    g = np.random.default_rng(16)
+    cent = torch.from_numpy(g.normal(size=(8, 1 << 16, 2)).astype(np.float32)).to(cuda)
+    q = pq.ProductQuantizer(centroids=cent, sq_bits=16).validate()
+    x = torch.from_numpy(g.normal(size=(3000, 16)).astype(np.float32)).to(cuda)
+    monkeypatch.setattr(pq, "scratch_budget", lambda device: 1 << 40)
+    want = pq.encode_indices(q, x)
+    monkeypatch.setattr(pq, "scratch_budget", lambda device: 8 * 8 * 4096 * 100)  # 100 a chunk
+    assert torch.equal(pq.encode_indices(q, x), want)
+
+
+def test_neg_scores_one_pass_on_card(cuda):
+    """ops/knn._neg_scores' one-pass -b2 + 2 cross equals 2 cross - b2 bit
+    for bit on the card too (doubling is exact, so a fused multiply-add
+    rounds once, as the two passes do)."""
+    from qadc_tpu_torch.core.tensors import full_f32_matmul
+    from qadc_tpu_torch.ops.knn import _neg_scores
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((3, 2000, 16), generator=g, device=cuda) * 37
+    b = torch.randn((3, 4096, 16), generator=g, device=cuda) * 11
+    with full_f32_matmul():
+        cross = torch.matmul(q, b.transpose(-1, -2))
+    assert torch.equal(_neg_scores(q, b), 2.0 * cross - torch.sum(b * b, dim=-1)[..., None, :])

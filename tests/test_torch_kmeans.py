@@ -21,11 +21,11 @@ import torch
 
 from qadc_tpu.ops.knn import assign_nearest as jassign
 from qadc_tpu_torch.core.tensors import as_generator
-from qadc_tpu_torch.ops import kmeans as tkm
 from qadc_tpu_torch.ops.knn import assign_nearest
 
-# qadc_tpu.ops exports the function `kmeans` under the module's name.
+# Both packages' ops export the function `kmeans` under the module's name.
 jkm = importlib.import_module("qadc_tpu.ops.kmeans")
+tkm = importlib.import_module("qadc_tpu_torch.ops.kmeans")
 
 torch.set_num_threads(1)
 

@@ -38,7 +38,7 @@ def test_port_has_the_mirrored_modules():
                 "io/vecs.py", "io/native.py", "io/stream.py", "io/quantizer_files.py",
                 "eval/metrics.py", "eval/trace.py", "engine.py", "autotune.py", "serve.py",
                 "cli/main.py", "dist/__init__.py", "dist/mesh.py", "dist/sharded.py",
-                "dist/sharded_ivf.py"):
+                "dist/sharded_ivf.py", "version.py"):
         assert rel in names, rel
 
 
@@ -52,6 +52,12 @@ def test_module_imports_no_jax(path):
 def test_chip_smoke_imports_no_jax():
     path = PORT.parent / "chip_smoke.py"
     for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, name
+
+
+def test_torch_example_imports_no_jax():
+    """examples/torch_sift_pipeline.py drives the port alone."""
+    for name in _imports(PORT.parent / "examples" / "torch_sift_pipeline.py"):
         assert name.split(".")[0] not in FORBIDDEN, name
 
 
