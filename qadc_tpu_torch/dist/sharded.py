@@ -20,6 +20,7 @@ import torch
 
 from qadc_tpu_torch.core.layout import DEFAULT_BLOCK
 from qadc_tpu_torch.dist.mesh import Mesh, make_mesh
+from qadc_tpu_torch.eval.trace import span
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.kernels.lut_scan import DISPATCH, Kernels
 from qadc_tpu_torch.kernels.scan_ref import scan_topk_f32
@@ -86,44 +87,46 @@ def search_qadc_flat_sharded(index: flat.FlatIndex, queries, r: int = 100, keep:
     Returns (dists (Q, r) float32, labels (Q, r) int32), the same on every
     process.
     """
-    if index.pq.sq_bits != 4:
-        raise ValueError("Quick ADC requires sq_bits == 4")
-    if index.pq.sq_count not in (16, 32):
-        raise ValueError(f"the sharded Quick-ADC scan takes 16 or 32 sub-quantizers, "
-                         f"got {index.pq.sq_count}")
-    if mesh is None:
-        mesh = make_mesh()
-    rows, codes = _shard_layout(index, mesh)
-    cpr = index.cpr
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
-    tables = adc_tables(index.pq.rotate(queries), index.pq.centroids)   # (Q, M, 16)
-    tiles = ivf.tile_tables_rows(tables)
+    with span("search", path="sharded.flat"):
+        if index.pq.sq_bits != 4:
+            raise ValueError("Quick ADC requires sq_bits == 4")
+        if index.pq.sq_count not in (16, 32):
+            raise ValueError(f"the sharded Quick-ADC scan takes 16 or 32 sub-quantizers, "
+                             f"got {index.pq.sq_count}")
+        if mesh is None:
+            mesh = make_mesh()
+        rows, codes = _shard_layout(index, mesh)
+        cpr = index.cpr
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
+        tables = adc_tables(index.pq.rotate(queries), index.pq.centroids)   # (Q, M, 16)
+        tiles = ivf.tile_tables_rows(tables)
 
-    # The global prefix: each process scores the prefix rows it holds.
-    ps = flat._prefix_size(index.n or codes * mesh.shards, keep)
-    prefix_rows = -(-ps // cpr)
-    first = mesh.first_shard * rows
-    lo, hi = min(first, prefix_rows), min(first + index.codes.shape[0], prefix_rows)
-    pd = torch.zeros((tables.shape[0], prefix_rows * cpr), device=mesh.device)
-    if lo < hi:
-        pd[:, lo * cpr:hi * cpr] = flat.prefix_distances(index.codes, lo - first, hi - lo,
-                                                          tables, tiles, kernels)
-    valid = torch.arange(prefix_rows * cpr, device=mesh.device) < ps
-    qtables = int8_tables(tables, keep_prefix_bound(mesh.sum([pd]), r, valid[None, :]))
+        # The global prefix: each process scores the prefix rows it holds.
+        ps = flat._prefix_size(index.n or codes * mesh.shards, keep)
+        prefix_rows = -(-ps // cpr)
+        first = mesh.first_shard * rows
+        lo, hi = min(first, prefix_rows), min(first + index.codes.shape[0], prefix_rows)
+        pd = torch.zeros((tables.shape[0], prefix_rows * cpr), device=mesh.device)
+        if lo < hi:
+            pd[:, lo * cpr:hi * cpr] = flat.prefix_distances(index.codes, lo - first, hi - lo,
+                                                              tables, tiles, kernels)
+        valid = torch.arange(prefix_rows * cpr, device=mesh.device) < ps
+        qtables = int8_tables(tables, keep_prefix_bound(mesh.sum([pd]), r, valid[None, :]))
 
-    rr = min(2 * r if rerank else r, codes)
-    rank_tables = tables if rerank else qtables.to(torch.float32)
-    vals, labels = [], []
-    for codes_s, offset, size in _shards(index, mesh, rows, codes):
-        mins, _ = kernels.flat_scan(codes_s, qtables, size)
-        glabels = torch.clamp(offset + torch.arange(codes, dtype=torch.int32, device=mesh.device),
-                              max=max(index.n - 1, 0))
-        v, lab = flat.window_search_rows(codes_s, glabels, size, mins, rank_tables, rr,
-                                         min(rr, rows), kernels,
-                                         tiles=tiles if rerank else None)
-        vals.append(v)
-        labels.append(lab)
-    return _merge(mesh, vals, labels, r)
+        rr = min(2 * r if rerank else r, codes)
+        rank_tables = tables if rerank else qtables.to(torch.float32)
+        vals, labels = [], []
+        for codes_s, offset, size in _shards(index, mesh, rows, codes):
+            mins, _ = kernels.flat_scan(codes_s, qtables, size)
+            glabels = torch.clamp(
+                offset + torch.arange(codes, dtype=torch.int32, device=mesh.device),
+                max=max(index.n - 1, 0))
+            v, lab = flat.window_search_rows(codes_s, glabels, size, mins, rank_tables, rr,
+                                             min(rr, rows), kernels,
+                                             tiles=tiles if rerank else None)
+            vals.append(v)
+            labels.append(lab)
+        return _merge(mesh, vals, labels, r)
 
 
 def search_adc_flat_sharded(index: flat.FlatIndex, queries, r: int = 100,
@@ -138,29 +141,31 @@ def search_adc_flat_sharded(index: flat.FlatIndex, queries, r: int = 100,
     bits by the reconstruction GEMM, as the JAX package computes them
     outside any Pallas kernel.
     """
-    if mesh is None:
-        mesh = make_mesh()
-    rows, codes = _shard_layout(index, mesh)
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
-    bits = index.pq.sq_bits
-    tables = None if bits == 16 else adc_tables(index.pq.rotate(queries), index.pq.centroids)
-    tiles = ivf.tile_tables_rows(tables) if bits == 4 and index.pq.sq_count in (16, 32) else None
-    rr = min(r, codes)
-    budget = flat._scan_budget(index, None)
-    vals, labels = [], []
-    for codes_s, offset, size in _shards(index, mesh, rows, codes):
-        shard = dataclasses.replace(index, codes=codes_s, n=size)
-        if bits == 16:
-            v, lab = flat._search_adc_recon(shard, queries, rr)
-        elif tiles is not None:
-            v, lab = flat._search4_windowed(shard, tables, tables, rr, rr, budget, kernels,
-                                            tiles=tiles)
-        else:
-            v, lab = scan_topk_f32(codes_s.reshape(-1, index.pq.code_size), shard.labels,
-                                   tables, bits, rr, num_valid=size)
-        vals.append(v)
-        labels.append(lab + offset)               # the shard's code ids are local
-    return _merge(mesh, vals, labels, r)
+    with span("search", path="sharded.flat.adc"):
+        if mesh is None:
+            mesh = make_mesh()
+        rows, codes = _shard_layout(index, mesh)
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
+        bits = index.pq.sq_bits
+        tables = None if bits == 16 else adc_tables(index.pq.rotate(queries), index.pq.centroids)
+        tiles = (ivf.tile_tables_rows(tables) if bits == 4 and index.pq.sq_count in (16, 32)
+                 else None)
+        rr = min(r, codes)
+        budget = flat._scan_budget(index, None)
+        vals, labels = [], []
+        for codes_s, offset, size in _shards(index, mesh, rows, codes):
+            shard = dataclasses.replace(index, codes=codes_s, n=size)
+            if bits == 16:
+                v, lab = flat._search_adc_recon(shard, queries, rr)
+            elif tiles is not None:
+                v, lab = flat._search4_windowed(shard, tables, tables, rr, rr, budget, kernels,
+                                                tiles=tiles)
+            else:
+                v, lab = scan_topk_f32(codes_s.reshape(-1, index.pq.code_size), shard.labels,
+                                       tables, bits, rr, num_valid=size)
+            vals.append(v)
+            labels.append(lab + offset)               # the shard's code ids are local
+        return _merge(mesh, vals, labels, r)
 
 
 def search_query_parallel(search_fn, index, queries, mesh: Mesh | None = None, **kwargs):

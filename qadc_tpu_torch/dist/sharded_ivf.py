@@ -29,6 +29,7 @@ import dataclasses
 import torch
 
 from qadc_tpu_torch.dist.mesh import Mesh, make_mesh
+from qadc_tpu_torch.eval.trace import span
 from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.index.routing import route_queries
 from qadc_tpu_torch.io.checkpoint import FAR_CENTROID, load_index_rows, sharded_manifest
@@ -143,67 +144,68 @@ def search_qadc_ivf_sharded(
     Returns (dists (Q, r) float32, labels (Q, r) int32), the same on every
     process.
     """
-    if index.pq.sq_bits != 4:
-        raise ValueError("Quick ADC requires sq_bits == 4")
-    if mesh is None:
-        mesh = make_mesh()
-    ma = min(ma, index.part_count)  # probing more partitions than exist == all
-    if index.part_count % mesh.shards:
-        raise ValueError("partition count must be a shard multiple (use shard_ivf_partitions)")
-    p_loc = index.part_count // mesh.shards
-    held = p_loc * mesh.local_shards
-    if index.codes.shape[0] != held or index.device != mesh.device:
-        raise ValueError(f"the index holds {index.codes.shape[0]} partitions on {index.device}; "
-                         f"this process's shards own {held} on {mesh.device}")
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
-    q = queries.shape[0]
-    m = index.pq.sq_count
-    prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
-    prefix_pad = min(prefix_pad, index.part_pad)
+    with span("search", path="sharded.ivf"):
+        if index.pq.sq_bits != 4:
+            raise ValueError("Quick ADC requires sq_bits == 4")
+        if mesh is None:
+            mesh = make_mesh()
+        ma = min(ma, index.part_count)  # probing more partitions than exist == all
+        if index.part_count % mesh.shards:
+            raise ValueError("partition count must be a shard multiple (use shard_ivf_partitions)")
+        p_loc = index.part_count // mesh.shards
+        held = p_loc * mesh.local_shards
+        if index.codes.shape[0] != held or index.device != mesh.device:
+            raise ValueError(f"the index holds {index.codes.shape[0]} partitions on "
+                             f"{index.device}; this process's shards own {held} on {mesh.device}")
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=mesh.device)
+        q = queries.shape[0]
+        m = index.pq.sq_count
+        prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
+        prefix_pad = min(prefix_pad, index.part_pad)
 
-    # 1. replicated front.
-    parts, rot = ivf.assign_queries(index, queries, ma)      # (Q, ma) global ids
-    tables = adc_tables(rot, index.pq.centroids)              # (Q, ma, M, 16)
-    tlo, thi = ivf.tile_tables_rows(tables.reshape(q * ma, m, 16))
-    local = parts - mesh.first_shard * p_loc
-    owned = (local >= 0) & (local < held)
-    local = torch.where(owned, local, 0)
-    sizes = torch.where(owned, index.part_sizes[local.long()], 0)
+        # 1. replicated front.
+        parts, rot = ivf.assign_queries(index, queries, ma)      # (Q, ma) global ids
+        tables = adc_tables(rot, index.pq.centroids)              # (Q, ma, M, 16)
+        tlo, thi = ivf.tile_tables_rows(tables.reshape(q * ma, m, 16))
+        local = parts - mesh.first_shard * p_loc
+        owned = (local >= 0) & (local < held)
+        local = torch.where(owned, local, 0)
+        sizes = torch.where(owned, index.part_sizes[local.long()], 0)
 
-    # 2. keep-prefix distances of owned pairs, summed over the mesh.
-    pd, valid = ivf.prefix_distances(index.codes, local, sizes, keep, prefix_pad, (tlo, thi),
-                                     kernels)
-    cols = pd.shape[-1]
-    summed = mesh.sum([torch.cat([torch.where(valid, pd, 0.0), valid.to(torch.float32)], -1)])
-    bound = keep_prefix_bound(summed[..., :cols].reshape(q, -1), r,
-                              (summed[..., cols:] > 0).reshape(q, -1))
-    qtables = int8_tables(tables, bound)
+        # 2. keep-prefix distances of owned pairs, summed over the mesh.
+        pd, valid = ivf.prefix_distances(index.codes, local, sizes, keep, prefix_pad, (tlo, thi),
+                                         kernels)
+        cols = pd.shape[-1]
+        summed = mesh.sum([torch.cat([torch.where(valid, pd, 0.0), valid.to(torch.float32)], -1)])
+        bound = keep_prefix_bound(summed[..., :cols].reshape(q, -1), r,
+                                  (summed[..., cols:] > 0).reshape(q, -1))
+        qtables = int8_tables(tables, bound)
 
-    # 3-4. per chunk: the local scans, then the chunk's gather (issued now,
-    # waited for after the remaining chunks' scans).
-    nchunks = overlap_chunks if overlap_chunks >= 1 and q % overlap_chunks == 0 else 1
-    qc = q // nchunks
-    budget = (ivf._default_scan_budget(mesh.device) if scan_budget_bytes is None
-              else scan_budget_bytes)
-    c = index.codes.shape[1]
-    step = ivf._governed_query_chunk(
-        lambda n: ivf._grouped_scan_bytes(
-            n, ma, held, index.part_pad, index.cpr, group_size, lanes=16 * index.pq.code_size,
-            val_bytes=4, slab_bytes=1, n_streams=1, r=r * mesh.local_shards,
-            cb=index.pq.code_size) + n * ma * c * 4 * mesh.local_shards,
-        qc, budget)
-    pending = []
-    for s in range(0, q, qc):
-        outs = []
-        for a in range(s, s + qc, step):
-            b = min(a + step, s + qc)
-            outs.append(_scan_shards(
-                index, mesh.local_shards, local[a:b], sizes[a:b], qtables[a:b], tables[a:b],
-                (tlo[a * ma:b * ma], thi[a * ma:b * ma]), r, group_size, kernels))
-        lv = torch.cat([o[0] for o in outs])
-        ll = torch.cat([o[1] for o in outs])
-        pending.append((mesh.gather([lv], dim=1, async_op=True),
-                        mesh.gather([ll], dim=1, async_op=True)))
-    all_v = torch.cat([wv() for wv, _ in pending])
-    all_l = torch.cat([wl() for _, wl in pending])
-    return topk_smallest(all_v, all_l, r)
+        # 3-4. per chunk: the local scans, then the chunk's gather (started now,
+        # waited for after the remaining chunks' scans).
+        nchunks = overlap_chunks if overlap_chunks >= 1 and q % overlap_chunks == 0 else 1
+        qc = q // nchunks
+        budget = (ivf._default_scan_budget(mesh.device) if scan_budget_bytes is None
+                  else scan_budget_bytes)
+        c = index.codes.shape[1]
+        step = ivf._governed_query_chunk(
+            lambda n: ivf._grouped_scan_bytes(
+                n, ma, held, index.part_pad, index.cpr, group_size, lanes=16 * index.pq.code_size,
+                val_bytes=4, slab_bytes=1, n_streams=1, r=r * mesh.local_shards,
+                cb=index.pq.code_size) + n * ma * c * 4 * mesh.local_shards,
+            qc, budget)
+        pending = []
+        for s in range(0, q, qc):
+            outs = []
+            for a in range(s, s + qc, step):
+                b = min(a + step, s + qc)
+                outs.append(_scan_shards(
+                    index, mesh.local_shards, local[a:b], sizes[a:b], qtables[a:b], tables[a:b],
+                    (tlo[a * ma:b * ma], thi[a * ma:b * ma]), r, group_size, kernels))
+            lv = torch.cat([o[0] for o in outs])
+            ll = torch.cat([o[1] for o in outs])
+            pending.append((mesh.gather([lv], dim=1, async_op=True),
+                            mesh.gather([ll], dim=1, async_op=True)))
+        all_v = torch.cat([wv() for wv, _ in pending])
+        all_l = torch.cat([wl() for _, wl in pending])
+        return topk_smallest(all_v, all_l, r)

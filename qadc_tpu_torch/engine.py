@@ -7,12 +7,16 @@ CSV contract (the reference's index / rotate / table / scan columns,
 db_query_4.cpp:387-390) and cuts a query stream into batches of one shape,
 the tail padded with zero queries.
 
-Phases are attributed as in the JAX engine, by timing cumulative prefixes of
-the search (front; front + tables; the full search) and differencing, so
-index + rotate + table + scan is the full search's time by construction.
-Each prefix is timed with CUDA events (eval/trace.timed: the median of
-`iters` calls after a warm-up) inside an `annotate` span that a profiler
-trace names.
+Phases are read from the spans of whole searches (eval/trace): each search
+runs under a recording that places a CUDA event at the boundaries of the
+`search` span and of the phase spans, and a phase is the device time
+between the events of its spans (on the CPU, the host clock's). The front spans are the index and rotate phases, the table
+spans the table phase, and the rest of the search span the scan phase, so
+index + rotate + table + scan is the search's own time by construction.
+
+Spans of `run`: `engine.batch` (self time: the numpy work of a batch) holds
+`engine.copy_in`, the search's `search` span and `engine.copy_out` (the
+results to the host, where the host waits for the device).
 """
 
 from __future__ import annotations
@@ -23,20 +27,58 @@ import numpy as np
 import torch
 
 from qadc_tpu_torch.eval.metrics import QueryMetrics
-from qadc_tpu_torch.eval.trace import annotate, timed
+from qadc_tpu_torch.eval.trace import recording, span
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.flat import FlatIndex
 from qadc_tpu_torch.index.ivf import IVFIndex
-from qadc_tpu_torch.ops.tables import adc_tables
+
+# The spans of each phase (index/ivf.py, index/flat.py); the scan phase is
+# the rest of the `search` span.
+INDEX_SPANS = ("front.assign",)
+ROTATE_SPANS = ("front.rotate",)
+TABLE_SPANS = ("front.tables", "front.keep_bound", "front.int8")
+PHASE_SPANS = ("search", *INDEX_SPANS, *ROTATE_SPANS, *TABLE_SPANS)
 
 
-def split_phases(t_front: float, t_tables: float, t_full: float) -> tuple[float, float, float]:
-    """(front, tables, scan) from the times of the three cumulative prefixes:
-    each prefix is clipped into [the shorter prefix, the full search], so the
-    phases are non-negative and sum to t_full."""
-    front = min(max(t_front, 0.0), t_full)
-    tables = min(max(t_tables, front), t_full)
-    return front, tables - front, t_full - tables
+def _span_ns(s) -> float:
+    """A span's time on the device timeline where it has one, else the host's."""
+    if s.device_start_ns is not None:
+        return s.device_end_ns - s.device_start_ns
+    return float(s.end_ns - s.start_ns)
+
+
+def phase_split(spans) -> list[tuple[float, float, float, float]]:
+    """(index, rotate, table, scan) nanoseconds of each outermost `search`
+    span of a recording, in the order the searches ran: the sums of the
+    phase spans it holds (found through their parents, so spans open
+    around the searches do not matter), and the search's time less them."""
+    by_id = {s.id: s for s in spans}
+
+    def search_of(s):
+        """The outermost `search` span that holds s, s itself included."""
+        top = None
+        while s is not None:
+            if s.name == "search":
+                top = s
+            s = by_id.get(s.parent)
+        return top
+
+    by_search: dict[int, dict[str, float]] = {}
+    searches = []
+    for s in spans:
+        top = search_of(s)
+        if top is s:
+            searches.append(s)
+        elif top is not None:
+            acc = by_search.setdefault(top.id, {})
+            acc[s.name] = acc.get(s.name, 0.0) + _span_ns(s)
+    out = []
+    for s in sorted(searches, key=lambda s: s.start_ns):
+        acc = by_search.get(s.id, {})
+        index, rotate, table = (sum(acc.get(n, 0.0) for n in names)
+                                for names in (INDEX_SPANS, ROTATE_SPANS, TABLE_SPANS))
+        out.append((index, rotate, table, _span_ns(s) - index - rotate - table))
+    return out
 
 
 class QueryEngine:
@@ -72,49 +114,32 @@ class QueryEngine:
                                     rerank=self.rerank)
         return flat.search_adc(self.index, queries, r=self.r)
 
-    def _front(self, queries: torch.Tensor):
-        """Coarse assignment with the residuals' rotation (IVF), or the
-        queries' rotation (flat): the rotated vectors the tables take."""
-        if self.is_ivf:
-            return ivf.assign_queries(self.index, queries, self.ma)[1]
-        return self.index.pq.rotate(queries)
-
     def measure_phases(self, queries, iters: int = 20, warmup: int = 3) -> QueryMetrics:
         """Per-query phase microseconds of one (batch_size, dim) batch.
 
-        Times the prefixes front, front + tables and the full search (the
-        median of `iters` calls each) and differences them (split_phases).
-        For an IVF index the front is the assignment with the residuals'
-        rotation (index_us, rotate_us 0, as in the JAX engine); for a flat
-        index it is the rotation (rotate_us, index_us 0).
+        Runs `iters` searches (after `warmup`) under one recording with CUDA
+        events at the boundaries of PHASE_SPANS and splits the median search (by its
+        own time) into its phases (phase_split). For an IVF index the index
+        phase is the assignment with the residuals' rotation (rotate_us 0,
+        as in the JAX engine); for a flat index the rotate phase is the
+        queries' rotation (index_us 0).
 
         Returns per-query-averaged QueryMetrics (count=1).
         """
         dev = self.index.device
         qs = torch.as_tensor(np.asarray(queries, np.float32)[: self.batch_size], device=dev)
-        centroids = self.index.pq.centroids
-
-        def front():
-            with annotate("qadc.phase.front"):
-                return self._front(qs)
-
-        def front_tables():
-            with annotate("qadc.phase.front_tables"):
-                return adc_tables(self._front(qs), centroids)
-
-        def full():
-            with annotate("qadc.phase.search"):
-                return self.search(qs)
-
-        t = [timed(fn, iters=iters, warmup=warmup, device=dev) * 1e6
-             for fn in (front, front_tables, full)]
-        front_us, table_us, scan_us = split_phases(*t)
-        q = qs.shape[0]
+        for _ in range(warmup):
+            self.search(qs)
+        with recording(device_events=PHASE_SPANS if dev.type == "cuda" else ()) as rec:
+            for _ in range(iters):
+                self.search(qs)
+        splits = sorted(phase_split(rec.spans), key=sum)
+        index, rotate, table, scan = (ns / 1e3 / qs.shape[0] for ns in splits[len(splits) // 2])
         metrics = QueryMetrics()
         if self.is_ivf:
-            metrics.add(front_us / q, 0.0, table_us / q, scan_us / q)
+            metrics.add(index + rotate, 0.0, table, scan)
         else:
-            metrics.add(0.0, front_us / q, table_us / q, scan_us / q)
+            metrics.add(index, rotate, table, scan)
         return metrics
 
     def run(self, queries, with_metrics: bool = False):
@@ -136,16 +161,22 @@ class QueryEngine:
             metrics = self.measure_phases(first)
         dev = self.index.device
         all_d, all_l = [], []
+        short = 0
         for s in range(0, q, b):
-            batch = queries[s:s + b]
-            n = batch.shape[0]
-            if n < b:
-                batch = np.concatenate([batch, np.zeros((b - n, dim), np.float32)])
-            d, lab = self.search(torch.from_numpy(batch).to(dev))
-            all_d.append(d[:n].cpu().numpy())
-            all_l.append(lab[:n].cpu().numpy())
+            with span("engine.batch"):
+                batch = queries[s:s + b]
+                n = batch.shape[0]
+                if n < b:
+                    batch = np.concatenate([batch, np.zeros((b - n, dim), np.float32)])
+                with span("engine.copy_in"):
+                    x = torch.from_numpy(batch).to(dev)
+                d, lab = self.search(x)
+                with span("engine.copy_out"):
+                    d, lab = d[:n].cpu().numpy(), lab[:n].cpu().numpy()
+                short += int(np.any(~np.isfinite(d), axis=1).sum())
+                all_d.append(d)
+                all_l.append(lab)
         out_d, out_l = np.concatenate(all_d), np.concatenate(all_l)
-        short = int(np.any(~np.isfinite(out_d), axis=1).sum())
         if short:
             # Reference: heap-not-full warning (query_common.hpp:356-358).
             print(f"warning: fewer than r={self.r} results for {short}/{q} "

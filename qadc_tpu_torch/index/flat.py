@@ -32,6 +32,7 @@ import torch
 from qadc_tpu_torch.core.layout import DEFAULT_BLOCK, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
 from qadc_tpu_torch.core.tensors import full_f32_matmul
+from qadc_tpu_torch.eval.trace import span
 from qadc_tpu_torch.index import ivf
 from qadc_tpu_torch.kernels.lut_scan import (
     DEFAULT_BLOCK_N,
@@ -148,13 +149,20 @@ def _quantized_tables(index: FlatIndex, queries, r: int, keep: float, kernels: K
     Returns (tables (Q, M, 16) float32, qtables (Q, M, 16) int8, (tlo, thi)
     the compact tables of the rerank).
     """
-    tables = adc_tables(index.pq.rotate(queries), index.pq.centroids)
-    tiles = ivf.tile_tables_rows(tables)
-    ps = min(_prefix_size(index.n or index.n_pad, keep), index.n_pad)
-    rows = -(-ps // index.cpr)
-    pd = prefix_distances(index.codes, 0, rows, tables, tiles, kernels)
-    valid = torch.arange(rows * index.cpr, device=index.device) < ps
-    return tables, int8_tables(tables, keep_prefix_bound(pd, r, valid[None, :])), tiles
+    with span("front.rotate"):
+        rotated = index.pq.rotate(queries)
+    with span("front.tables"):
+        tables = adc_tables(rotated, index.pq.centroids)
+        tiles = ivf.tile_tables_rows(tables)
+    with span("front.keep_bound"):
+        ps = min(_prefix_size(index.n or index.n_pad, keep), index.n_pad)
+        rows = -(-ps // index.cpr)
+        pd = prefix_distances(index.codes, 0, rows, tables, tiles, kernels)
+        valid = torch.arange(rows * index.cpr, device=index.device) < ps
+        bound = keep_prefix_bound(pd, r, valid[None, :])
+    with span("front.int8"):
+        qtables = int8_tables(tables, bound)
+    return tables, qtables, tiles
 
 
 def prefix_distances(codes_rows, first: int, rows: int, tables, tiles, kernels: Kernels):
@@ -191,8 +199,10 @@ def window_search_rows(codes_rows, labels_flat, size: int, vals, rank_tables, r:
     r_count = codes_rows.shape[0]
     cpr = labels_flat.shape[0] // r_count
     dev = codes_rows.device
-    real = torch.arange(r_count, device=dev) * cpr < size      # rows holding a real code
-    screen_v, sel = exact_tile_screen(torch.where(real, vals.to(torch.float32), torch.inf), wq)
+    with span("screen"):
+        real = torch.arange(r_count, device=dev) * cpr < size  # rows holding a real code
+        screen_v, sel = exact_tile_screen(torch.where(real, vals.to(torch.float32), torch.inf),
+                                          wq)
     sel_pair = torch.arange(q, device=dev)[:, None].expand(q, wq)
     return ivf.window_rerank(
         codes_rows[None], labels_flat[None], rank_tables[:, None], screen_v,
@@ -224,14 +234,19 @@ def _search4_windowed(index: FlatIndex, scan_tables, rank_tables, r: int, wq: in
     for ri in range(nr):
         codes_r = index.codes[ri * rows:(ri + 1) * rows]
         size_r = min(max(index.n - ri * range_codes, 0), range_codes)
-        vals, _ = kernels.flat_scan(codes_r, scan_tables, size_r)
-        if saturate:
-            # Entries are >= 0, so the window min of saturating sums == min(., 127).
-            vals = torch.clamp(vals, max=127)
+        with span("scan"):
+            vals, _ = kernels.flat_scan(codes_r, scan_tables, size_r)
+            if saturate:
+                # Entries are >= 0, so the window min of saturating sums == min(., 127).
+                vals = torch.clamp(vals, max=127)
         dv, dl = window_search_rows(
             codes_r, labels[ri * range_codes:(ri + 1) * range_codes], size_r, vals,
             rank_tables, r, min(wq, rows), kernels, tiles=tiles, clamp127=clamp127)
-        best = (dv, dl) if best is None else merge_topk(*best, dv, dl, r)
+        if best is None:
+            best = dv, dl
+        else:
+            with span("merge"):
+                best = merge_topk(*best, dv, dl, r)
     return best
 
 
@@ -257,27 +272,30 @@ def search_qadc(index: FlatIndex, queries, r: int = 100, keep: float = 0.01,
     Returns (dists (Q, r) float32, labels (Q, r) int32); distances are float
     ADC with rerank, quantized otherwise.
     """
-    if index.pq.sq_bits != 4:
-        raise ValueError("Quick ADC requires sq_bits == 4")
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
-    tables, qtables, tiles = _quantized_tables(index, queries, r, keep, kernels)
-    if windowed and _scan4_gate(index, r):
-        rank_tables = tables if rerank else qtables.to(torch.float32)
-        return _search4_windowed(
-            index, qtables, rank_tables, r, (2 if rerank else 1) * r,
-            _scan_budget(index, scan_budget_bytes), kernels,
-            tiles=tiles if rerank else None, saturate=saturate,
-            clamp127=saturate and not rerank)
-    packed = index.codes.reshape(-1, index.pq.code_size)
-    if not rerank:
-        return scan_topk_int8(packed, index.labels, qtables, r, num_valid=index.n,
-                              saturate=saturate)
-    screen_v, cand = scan_topk_int8(packed, index.labels, qtables, min(2 * r, index.n_pad),
-                                    num_valid=index.n, saturate=saturate)
-    # Flat labels are code indices, so the candidates gather directly.
-    fd = _exact_rerank(tables, gather_codes_row128(index.codes, cand, index.pq.code_size), 4)
-    # Padding stays masked after the rerank.
-    return topk_smallest(torch.where(torch.isfinite(screen_v), fd, torch.inf), cand, r)
+    with span("search") as sp:
+        if index.pq.sq_bits != 4:
+            raise ValueError("Quick ADC requires sq_bits == 4")
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
+        tables, qtables, tiles = _quantized_tables(index, queries, r, keep, kernels)
+        if windowed and _scan4_gate(index, r):
+            sp.set(path="flat.window")
+            rank_tables = tables if rerank else qtables.to(torch.float32)
+            return _search4_windowed(
+                index, qtables, rank_tables, r, (2 if rerank else 1) * r,
+                _scan_budget(index, scan_budget_bytes), kernels,
+                tiles=tiles if rerank else None, saturate=saturate,
+                clamp127=saturate and not rerank)
+        sp.set(path="flat.codes")
+        packed = index.codes.reshape(-1, index.pq.code_size)
+        if not rerank:
+            return scan_topk_int8(packed, index.labels, qtables, r, num_valid=index.n,
+                                  saturate=saturate)
+        screen_v, cand = scan_topk_int8(packed, index.labels, qtables, min(2 * r, index.n_pad),
+                                        num_valid=index.n, saturate=saturate)
+        # Flat labels are code indices, so the candidates gather directly.
+        fd = _exact_rerank(tables, gather_codes_row128(index.codes, cand, index.pq.code_size), 4)
+        # Padding stays masked after the rerank.
+        return topk_smallest(torch.where(torch.isfinite(screen_v), fd, torch.inf), cand, r)
 
 
 def _scan8_gate(index: FlatIndex, r: int) -> bool:
@@ -379,18 +397,26 @@ def search_adc(index: FlatIndex, queries, r: int = 100, windowed: bool = True,
     Returns (dists (Q, r) float32 ascending, labels (Q, r) int32); +inf
     marks a slot with no candidate.
     """
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
-    bits = index.pq.sq_bits
-    if bits == 16:
-        return _search_adc_recon(index, queries, r)
-    tables = adc_tables(index.pq.rotate(queries), index.pq.centroids)  # (Q, M, K)
-    if windowed and _scan4_gate(index, r):
-        # wq = r: the screen's minima are the rerank's distances, bit for bit.
-        return _search4_windowed(index, tables, tables, r, r,
-                                 _scan_budget(index, scan_budget_bytes), kernels,
-                                 tiles=ivf.tile_tables_rows(tables))
-    if windowed and _scan8_gate(index, r):
-        return _search_adc8_windowed(index, tables, r, _scan_budget(index, scan_budget_bytes),
-                                     kernels)
-    return scan_topk_f32(index.codes.reshape(-1, index.pq.code_size), index.labels, tables,
-                         bits, r, num_valid=index.n)
+    with span("search") as sp:
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=index.device)
+        bits = index.pq.sq_bits
+        if bits == 16:
+            sp.set(path="flat.adc16")
+            return _search_adc_recon(index, queries, r)
+        with span("front.rotate"):
+            rotated = index.pq.rotate(queries)
+        with span("front.tables"):
+            tables = adc_tables(rotated, index.pq.centroids)  # (Q, M, K)
+        if windowed and _scan4_gate(index, r):
+            sp.set(path="flat.adc4")
+            # wq = r: the screen's minima are the rerank's distances, bit for bit.
+            return _search4_windowed(index, tables, tables, r, r,
+                                     _scan_budget(index, scan_budget_bytes), kernels,
+                                     tiles=ivf.tile_tables_rows(tables))
+        if windowed and _scan8_gate(index, r):
+            sp.set(path="flat.adc8")
+            return _search_adc8_windowed(index, tables, r, _scan_budget(index, scan_budget_bytes),
+                                         kernels)
+        sp.set(path="flat.adc.codes")
+        return scan_topk_f32(index.codes.reshape(-1, index.pq.code_size), index.labels,
+                             tables, bits, r, num_valid=index.n)

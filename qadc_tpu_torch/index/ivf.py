@@ -42,6 +42,7 @@ from qadc_tpu_torch.core.layout import code_view, codes_per_row
 from qadc_tpu_torch.core.packing import gather_codes_row128, unpack_codes
 from qadc_tpu_torch.core.tensors import (DEFAULT_DEVICE, as_f32, as_generator,
                                          full_f32_matmul, to_f32)
+from qadc_tpu_torch.eval.trace import count, span
 from qadc_tpu_torch.index.routing import group_capacity, route_queries
 from qadc_tpu_torch.kernels.lut_scan import (
     DISPATCH,
@@ -183,10 +184,12 @@ def add(index: IVFIndex, vectors, encode_batch: int = 262144) -> IVFIndex:
 
 def assign_queries(index: IVFIndex, queries: torch.Tensor, ma: int):
     """(Q, ma) int32 nearest partitions + (Q, ma, dim) rotated residuals."""
-    _, parts = exact_knn(queries, index.coarse_centroids, ma)
-    residuals = queries[:, None, :] - index.coarse_centroids[parts.long()]
+    with span("front.assign"):
+        _, parts = exact_knn(queries, index.coarse_centroids, ma)
+        residuals = queries[:, None, :] - index.coarse_centroids[parts.long()]
     q, _, dim = residuals.shape
-    rot = index.pq.rotate(residuals.reshape(q * ma, dim)).reshape(q, ma, dim)
+    with span("front.rotate"):
+        rot = index.pq.rotate(residuals.reshape(q * ma, dim)).reshape(q, ma, dim)
     return parts, rot
 
 
@@ -241,17 +244,21 @@ def _quantized_tables(index: IVFIndex, queries, r: int, ma: int, keep: float,
     int8 of the same shape, (tlo, thi) compact float tables for the rerank).
     """
     parts, rot = assign_queries(index, queries, ma)
-    tables = adc_tables(rot, index.pq.centroids)
     m = index.pq.sq_count
     q = queries.shape[0]
-    tiles = tile_tables_rows(tables.reshape(q * ma, m, 16))
+    with span("front.tables"):
+        tables = adc_tables(rot, index.pq.centroids)
+        tiles = tile_tables_rows(tables.reshape(q * ma, m, 16))
     if bound_override is None:
-        pd, valid = prefix_distances(index.codes, parts, index.part_sizes[parts.long()], keep,
-                                     prefix_pad, tiles, kernels)
-        bound = keep_prefix_bound(pd.reshape(q, -1), r, valid.reshape(q, -1))
+        with span("front.keep_bound"):
+            pd, valid = prefix_distances(index.codes, parts, index.part_sizes[parts.long()],
+                                         keep, prefix_pad, tiles, kernels)
+            bound = keep_prefix_bound(pd.reshape(q, -1), r, valid.reshape(q, -1))
     else:
         bound = torch.as_tensor(bound_override, dtype=torch.float32, device=index.device)
-    return parts, tables, int8_tables(tables, bound.reshape(q)), tiles
+    with span("front.int8"):
+        qtables = int8_tables(tables, bound.reshape(q))
+    return parts, tables, qtables, tiles
 
 
 def prefix_distances(codes, parts, sizes, keep: float, prefix_pad: int, tiles,
@@ -360,20 +367,22 @@ def _search_qadc_direct_impl(index: IVFIndex, queries, r: int, ma: int,
     """Small-batch path: exact float ADC over every probed code (M3), then
     the exact tile screen, whose output is already the final ranking."""
     parts, rot = assign_queries(index, queries, ma)
-    tables = adc_tables(rot, index.pq.centroids)            # (Q, ma, M, 16)
     m = index.pq.sq_count
     q = queries.shape[0]
     qa = q * ma
     part_pad = index.part_pad
-    tlo, thi = tile_tables_rows(tables.reshape(qa, m, 16))
+    with span("front.tables"):
+        tables = adc_tables(rot, index.pq.centroids)        # (Q, ma, M, 16)
+        tlo, thi = tile_tables_rows(tables.reshape(qa, m, 16))
     pflat = parts.reshape(qa)
     sizes = index.part_sizes[pflat.long()]
     # Code-order distances with MASK_BIG past each size, and 32-code minima.
     d, dmins = kernels.direct_scan(index.codes, pflat, tlo, thi, sizes)
     width = ma * part_pad
     wq = min(r, width)
-    sv, col = exact_tile_screen(d.reshape(q, width), wq,
-                                mins=dmins.reshape(q, width // TILE))
+    with span("screen"):
+        sv, col = exact_tile_screen(d.reshape(q, width), wq,
+                                    mins=dmins.reshape(q, width // TILE))
     if r > wq:  # tiny probed volume: pad to the (Q, r) contract
         sv = F.pad(sv, (0, r - wq), value=MASK_BIG)
         col = F.pad(col, (0, r - wq))
@@ -398,6 +407,16 @@ def _group_sizes(index: IVFIndex, routed) -> torch.Tensor:
     return torch.where(routed.group_valid, g_sz, 0).to(torch.int32)
 
 
+def _route(index: IVFIndex, parts: torch.Tensor, group_size: int):
+    """The `route` span: (routed batch, its slot pairs (gcap, G), its groups'
+    sizes (gcap,)), with the live groups counted (`route.groups`)."""
+    with span("route"):
+        routed = route_queries(parts, index.part_count, group_size)
+        out = routed, routed.slot_pairs(), _group_sizes(index, routed)
+    count("route.groups", routed.n_groups)
+    return out
+
+
 def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int):
     """Exact screen of each query's ma*C windows down to wq.
 
@@ -408,12 +427,13 @@ def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int):
     """
     q, ma = parts.shape
     c = cv.shape[1]
-    screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq)
-    selq = selq.long()
-    sel_ai = selq // c
-    sel_pair = torch.arange(q, device=cv.device)[:, None] * ma + sel_ai
-    sel_part = torch.gather(parts.long(), 1, sel_ai)
-    sel_sz = torch.gather(sz.reshape(q, ma), 1, sel_ai)
+    with span("screen"):
+        screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq)
+        selq = selq.long()
+        sel_ai = selq // c
+        sel_pair = torch.arange(q, device=cv.device)[:, None] * ma + sel_ai
+        sel_part = torch.gather(parts.long(), 1, sel_ai)
+        sel_sz = torch.gather(sz.reshape(q, ma), 1, sel_ai)
     return screen_v, sel_pair, sel_part, selq % c, sel_sz
 
 
@@ -431,17 +451,16 @@ def _search_qadc_grouped_impl(
     qa = q * ma
     c = index.codes.shape[1]                     # windows per partition = rows
 
-    routed = route_queries(parts, index.part_count, group_size)
-    vals = kernels.grouped_scan(
-        index.codes, qtables.reshape(qa, m, 16), routed.group_part,
-        routed.slot_pairs(), _group_sizes(index, routed),
-    )                                            # (QA, C) int32
-    cv = vals.to(torch.float32)
-    if saturate:
-        # Entries are >= 0, so the window min of saturating sums == min(., 127).
-        cv = torch.clamp(cv, max=127.0)
-    sz = index.part_sizes[parts.reshape(qa).long()]
-    cv = torch.where(_window_valid_mask(sz, c, index.cpr), cv, torch.inf)
+    routed, pairs, group_sizes = _route(index, parts, group_size)
+    with span("scan"):
+        vals = kernels.grouped_scan(index.codes, qtables.reshape(qa, m, 16), routed.group_part,
+                                    pairs, group_sizes)          # (QA, C) int32
+        cv = vals.to(torch.float32)
+        if saturate:
+            # Entries are >= 0, so the window min of saturating sums == min(., 127).
+            cv = torch.clamp(cv, max=127.0)
+        sz = index.part_sizes[parts.reshape(qa).long()]
+        cv = torch.where(_window_valid_mask(sz, c, index.cpr), cv, torch.inf)
 
     # Exact screen of the query's ma*C windows: with wq >= r windows by true
     # window minimum, every top-r code's window is provably kept.
@@ -474,30 +493,31 @@ def window_rerank(
     Returns (dists (Q, r), labels (Q, r)).
     """
     q, wq = screen_v.shape
-    m = tables_qa.shape[2]
-    rpp = codes.shape[1]
-    cpr = labels.shape[1] // rpp
-    a = q * wq
-    grow = sel_part.reshape(a) * rpp + sel_wi.reshape(a)
-    lab = labels.reshape(-1, cpr)[grow]                            # (A, cpr)
-    if tiles is None:
-        tiles = tile_tables_rows(tables_qa.reshape(-1, m, 16))
-    tlo, thi = tiles
-    cvf = kernels.rows_adc(codes.reshape(-1, 128), grow.to(torch.int32),
-                           sel_pair.reshape(a).to(torch.int32), tlo, thi)
-    if clamp127:
-        # Saturating-int8 reference semantics: entries >= 0, so min(sum, 127).
-        cvf = torch.clamp(cvf, max=127.0)
-    c_iota = torch.arange(cpr, device=codes.device)
-    alive = (
-        (sel_wi.reshape(a)[:, None] * cpr + c_iota[None, :]) < sel_sz.reshape(a)[:, None]
-    ) & torch.isfinite(screen_v).reshape(a)[:, None]
-    cvf = torch.where(alive, cvf, torch.inf).reshape(q, wq * cpr)
-    labq = lab.reshape(q, wq * cpr)
-    if r > wq * cpr:  # tiny probed volume: pad to the (Q, r) contract
-        cvf = F.pad(cvf, (0, r - wq * cpr), value=torch.inf)
-        labq = F.pad(labq, (0, r - wq * cpr))
-    return topk_smallest(cvf, labq, r)
+    with span("rerank"):
+        m = tables_qa.shape[2]
+        rpp = codes.shape[1]
+        cpr = labels.shape[1] // rpp
+        a = q * wq
+        grow = sel_part.reshape(a) * rpp + sel_wi.reshape(a)
+        lab = labels.reshape(-1, cpr)[grow]                            # (A, cpr)
+        if tiles is None:
+            tiles = tile_tables_rows(tables_qa.reshape(-1, m, 16))
+        tlo, thi = tiles
+        cvf = kernels.rows_adc(codes.reshape(-1, 128), grow.to(torch.int32),
+                               sel_pair.reshape(a).to(torch.int32), tlo, thi)
+        if clamp127:
+            # Saturating-int8 reference semantics: entries >= 0, so min(sum, 127).
+            cvf = torch.clamp(cvf, max=127.0)
+        c_iota = torch.arange(cpr, device=codes.device)
+        alive = (
+            (sel_wi.reshape(a)[:, None] * cpr + c_iota[None, :]) < sel_sz.reshape(a)[:, None]
+        ) & torch.isfinite(screen_v).reshape(a)[:, None]
+        cvf = torch.where(alive, cvf, torch.inf).reshape(q, wq * cpr)
+        labq = lab.reshape(q, wq * cpr)
+        if r > wq * cpr:  # tiny probed volume: pad to the (Q, r) contract
+            cvf = F.pad(cvf, (0, r - wq * cpr), value=torch.inf)
+            labq = F.pad(labq, (0, r - wq * cpr))
+        return topk_smallest(cvf, labq, r)
 
 
 def search_qadc(
@@ -536,61 +556,65 @@ def search_qadc(
 
     Returns (dists (Q, r) float32, labels (Q, r) int32).
     """
-    if index.pq.sq_bits != 4:
-        raise ValueError("Quick ADC requires sq_bits == 4")
-    dev = index.device
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    q = queries.shape[0]
-    ma = min(ma, index.part_count)
-    geometry_ok = index.pq.sq_count in (16, 32) and index.part_pad % 512 == 0
-    budget = _default_scan_budget(dev) if scan_budget_bytes is None else scan_budget_bytes
-    if direct is None:
-        qa = q * ma
-        density = qa / max(1, min(index.part_count, qa))
-        direct = (
-            dev.type == "cuda" and rerank and not saturate and geometry_ok
-            and (qa * index.part_pad <= DIRECT_MAX_CODES
-                 or density <= DIRECT_MAX_DENSITY)
+    with span("search") as sp:
+        if index.pq.sq_bits != 4:
+            raise ValueError("Quick ADC requires sq_bits == 4")
+        dev = index.device
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+        q = queries.shape[0]
+        ma = min(ma, index.part_count)
+        geometry_ok = index.pq.sq_count in (16, 32) and index.part_pad % 512 == 0
+        budget = _default_scan_budget(dev) if scan_budget_bytes is None else scan_budget_bytes
+        if direct is None:
+            qa = q * ma
+            density = qa / max(1, min(index.part_count, qa))
+            direct = (
+                dev.type == "cuda" and rerank and not saturate and geometry_ok
+                and (qa * index.part_pad <= DIRECT_MAX_CODES
+                     or density <= DIRECT_MAX_DENSITY)
+            )
+        if direct:
+            sp.set(path="ivf.direct")
+            # Dominant transient: the (q, ma*part_pad) distances plus screen
+            # intermediates, ~9 bytes per probed code.
+            chunk = _governed_query_chunk(lambda qc: qc * ma * index.part_pad * 9, q, budget)
+            return _run_query_chunks(
+                lambda qs, _: _search_qadc_direct_impl(index, qs, r, ma, kernels),
+                queries, chunk,
+            )
+        if grouped is None:
+            grouped = geometry_ok
+        if grouped and group_size is None:
+            pick = autotune.lookup(autotune.geometry_key(index, "ivf_qadc_grouped", q))
+            if not pick and autotune.enabled():
+                pick = autotune.tune_ivf_qadc(index, queries, r=r, ma=ma, keep=keep)
+            group_size = pick.get("group_size", autotune.DEFAULT_GROUP_SIZE)
+        if group_size is not None and group_size < 1:
+            raise ValueError(f"group_size must be >= 1, got {group_size}")
+        prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
+        prefix_pad = min(prefix_pad, index.part_pad)
+        if bound is not None:
+            bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
+        if not grouped:
+            sp.set(path="ivf.probe")
+            return _search_qadc_impl(index, queries, r, ma, keep, prefix_pad, rerank,
+                                     kernels, saturate=saturate, bound=bound)
+        chunk = _governed_query_chunk(
+            lambda qc: _grouped_scan_bytes(
+                qc, ma, index.part_count, index.part_pad, index.cpr, group_size,
+                lanes=16 * index.pq.code_size, val_bytes=4, slab_bytes=1, n_streams=1,
+                r=r, cb=index.pq.code_size, prefix_pad=prefix_pad,
+            ),
+            q, budget,
         )
-    if direct:
-        # Dominant transient: the (q, ma*part_pad) distances plus screen
-        # intermediates, ~9 bytes per probed code.
-        chunk = _governed_query_chunk(lambda qc: qc * ma * index.part_pad * 9, q, budget)
+        sp.set(path="ivf.grouped")
         return _run_query_chunks(
-            lambda qs, _: _search_qadc_direct_impl(index, qs, r, ma, kernels),
-            queries, chunk,
+            lambda qs, bd: _search_qadc_grouped_impl(
+                index, qs, r, ma, keep, prefix_pad, rerank, group_size, kernels,
+                saturate=saturate, bound=bd, screen_windows=screen_windows,
+            ),
+            queries, chunk, bound,
         )
-    if grouped is None:
-        grouped = geometry_ok
-    if grouped and group_size is None:
-        pick = autotune.lookup(autotune.geometry_key(index, "ivf_qadc_grouped", q))
-        if not pick and autotune.enabled():
-            pick = autotune.tune_ivf_qadc(index, queries, r=r, ma=ma, keep=keep)
-        group_size = pick.get("group_size", autotune.DEFAULT_GROUP_SIZE)
-    if group_size is not None and group_size < 1:
-        raise ValueError(f"group_size must be >= 1, got {group_size}")
-    prefix_pad = max(1, int(index.max_part_size * keep)) if index.max_part_size else 1
-    prefix_pad = min(prefix_pad, index.part_pad)
-    if bound is not None:
-        bound = torch.as_tensor(bound, dtype=torch.float32, device=dev)
-    if not grouped:
-        return _search_qadc_impl(index, queries, r, ma, keep, prefix_pad, rerank,
-                                 kernels, saturate=saturate, bound=bound)
-    chunk = _governed_query_chunk(
-        lambda qc: _grouped_scan_bytes(
-            qc, ma, index.part_count, index.part_pad, index.cpr, group_size,
-            lanes=16 * index.pq.code_size, val_bytes=4, slab_bytes=1, n_streams=1,
-            r=r, cb=index.pq.code_size, prefix_pad=prefix_pad,
-        ),
-        q, budget,
-    )
-    return _run_query_chunks(
-        lambda qs, bd: _search_qadc_grouped_impl(
-            index, qs, r, ma, keep, prefix_pad, rerank, group_size, kernels,
-            saturate=saturate, bound=bd, screen_windows=screen_windows,
-        ),
-        queries, chunk, bound,
-    )
 
 
 # ------------------------------------------------------- per-probe paths
@@ -650,7 +674,8 @@ def _search_adc_probe_impl(index: IVFIndex, queries, r: int, ma: int):
     pq = index.pq
     wide = pq.sq_bits == 16
     if not wide:
-        tables = adc_tables(rot, pq.centroids)               # (Q, ma, M, K)
+        with span("front.tables"):
+            tables = adc_tables(rot, pq.centroids)           # (Q, ma, M, K)
     q = queries.shape[0]
     part_pad = index.part_pad
     sizes = index.part_sizes[parts.long()]
@@ -690,16 +715,16 @@ def _search_adc4_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
     minimum is at most the r-th distance.
     """
     parts, rot = assign_queries(index, queries, ma)
-    tables = adc_tables(rot, index.pq.centroids)             # (Q, ma, M, 16)
+    with span("front.tables"):
+        tables = adc_tables(rot, index.pq.centroids)         # (Q, ma, M, 16)
     q = queries.shape[0]
     m = index.pq.sq_count
     qa = q * ma
     c = index.codes.shape[1]                                 # windows = rows
-    routed = route_queries(parts, index.part_count, group_size)
-    cv = kernels.grouped_scan(
-        index.codes, tables.reshape(qa, m, 16), routed.group_part,
-        routed.slot_pairs(), _group_sizes(index, routed),
-    )                                                        # (QA, C) f32, inf trimmed
+    routed, pairs, group_sizes = _route(index, parts, group_size)
+    with span("scan"):
+        cv = kernels.grouped_scan(index.codes, tables.reshape(qa, m, 16), routed.group_part,
+                                  pairs, group_sizes)        # (QA, C) f32, inf trimmed
     sz = index.part_sizes[parts.reshape(qa).long()]
     screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, min(r, ma * c))
     return window_rerank(index.codes, index.labels, tables, screen_v, sel_part, sel_pair,
@@ -741,18 +766,20 @@ def _search_adc8_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
     or dedup is needed (the reference's ivf.py:465-486).
     """
     parts, rot = assign_queries(index, queries, ma)
-    tables = adc_tables(rot, index.pq.centroids)             # (Q, ma, M, 256) f32
+    with span("front.tables"):
+        tables = adc_tables(rot, index.pq.centroids)         # (Q, ma, M, 256) f32
     q = queries.shape[0]
     m = index.pq.sq_count
     qa = q * ma
     cpr = index.cpr
     window, cs = scan8_windows(m)
     c = index.codes.shape[1] * cs
-    routed = route_queries(parts, index.part_count, group_size)
-    cv, _ = kernels.grouped_scan8(
-        index.codes, tables.reshape(qa, m, 256).to(torch.bfloat16), routed.group_part,
-        routed.slot_pairs(), _group_sizes(index, routed),
-    )                                                        # (QA, C), inf = no real code
+    routed, pairs, group_sizes = _route(index, parts, group_size)
+    with span("scan"):
+        cv, _ = kernels.grouped_scan8(
+            index.codes, tables.reshape(qa, m, 256).to(torch.bfloat16), routed.group_part,
+            pairs, group_sizes,
+        )                                                    # (QA, C), inf = no real code
     sz = index.part_sizes[parts.reshape(qa).long()]
     wq = min(r + max(16, r // 8), ma * c)
     screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, wq)
@@ -848,35 +875,38 @@ def search_adc(
     Returns (dists (Q, r) float32, labels (Q, r) int32); +inf marks a slot
     with no candidate.
     """
-    dev = index.device
-    queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    q = queries.shape[0]
-    # Probing more partitions than exist == probing all of them.
-    ma = min(ma, index.part_count)
-    bits, m = index.pq.sq_bits, index.pq.sq_count
-    has_grouped = ((bits == 4 and m in (16, 32)) or (bits == 8 and m in SCAN8_SQ_COUNTS)
-                   or bits == 16)
-    if grouped is None:
-        grouped = has_grouped and index.part_pad % 512 == 0
-    if not grouped:
-        return _search_adc_probe_impl(index, queries, r, ma)
-    if not has_grouped:
-        raise ValueError(f"no grouped path for {m}x{bits}-bit codes")
-    if bits == 16:
-        return _search_adc16_grouped_impl(index, queries, r, ma, group_size)
-    budget = _default_scan_budget(dev) if scan_budget_bytes is None else scan_budget_bytes
-    if bits == 4:
-        impl = _search_adc4_grouped_impl
-        bytes_kw = dict(window=index.cpr, lanes=8 * m, val_bytes=4, slab_bytes=4,
-                        n_streams=1, r=r, cb=index.pq.code_size)
-    else:
-        impl = _search_adc8_grouped_impl
-        bytes_kw = dict(window=scan8_windows(m)[0], lanes=256 * m, val_bytes=4,
-                        slab_bytes=2, n_streams=2)     # minima + argmin streams
-    chunk = _governed_query_chunk(
-        lambda qc: _grouped_scan_bytes(qc, ma, index.part_count, index.part_pad,
-                                       group_size=group_size, **bytes_kw),
-        q, budget,
-    )
-    return _run_query_chunks(
-        lambda qs, _: impl(index, qs, r, ma, group_size, kernels), queries, chunk)
+    with span("search") as sp:
+        dev = index.device
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+        q = queries.shape[0]
+        # Probing more partitions than exist == probing all of them.
+        ma = min(ma, index.part_count)
+        bits, m = index.pq.sq_bits, index.pq.sq_count
+        has_grouped = ((bits == 4 and m in (16, 32)) or (bits == 8 and m in SCAN8_SQ_COUNTS)
+                       or bits == 16)
+        if grouped is None:
+            grouped = has_grouped and index.part_pad % 512 == 0
+        if not grouped:
+            sp.set(path="ivf.adc.probe")
+            return _search_adc_probe_impl(index, queries, r, ma)
+        if not has_grouped:
+            raise ValueError(f"no grouped path for {m}x{bits}-bit codes")
+        sp.set(path=f"ivf.adc{bits}")
+        if bits == 16:
+            return _search_adc16_grouped_impl(index, queries, r, ma, group_size)
+        budget = _default_scan_budget(dev) if scan_budget_bytes is None else scan_budget_bytes
+        if bits == 4:
+            impl = _search_adc4_grouped_impl
+            bytes_kw = dict(window=index.cpr, lanes=8 * m, val_bytes=4, slab_bytes=4,
+                            n_streams=1, r=r, cb=index.pq.code_size)
+        else:
+            impl = _search_adc8_grouped_impl
+            bytes_kw = dict(window=scan8_windows(m)[0], lanes=256 * m, val_bytes=4,
+                            slab_bytes=2, n_streams=2)     # minima + argmin streams
+        chunk = _governed_query_chunk(
+            lambda qc: _grouped_scan_bytes(qc, ma, index.part_count, index.part_pad,
+                                           group_size=group_size, **bytes_kw),
+            q, budget,
+        )
+        return _run_query_chunks(
+            lambda qs, _: impl(index, qs, r, ma, group_size, kernels), queries, chunk)

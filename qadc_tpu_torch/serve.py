@@ -17,6 +17,12 @@ once on the stream current where the server was made, which is where the
 index was built. Each batch is copied in from pinned memory and its results
 are copied out before the futures resolve.
 
+Spans (eval/trace, while a recording is open): each request's
+`serve.queue_wait`, from its submit to the end of its batch's collection
+(the waits of one batch share a batch id), and the counter `serve.fill`,
+the requests of each batch; the executor's searches record their own
+spans.
+
 Usage:
     server = SearchServer(index, r=100, ma=24, keep=0.00852, batch_size=128)
     future = server.submit(query_vector)     # any thread
@@ -37,13 +43,16 @@ import torch
 
 from qadc_tpu_torch.core.tensors import DEFAULT_DEVICE
 from qadc_tpu_torch.engine import QueryEngine
+from qadc_tpu_torch.eval.trace import add_span, count, stamp
 
 
 class Request(Future):
     """The Future of one query: resolves to (dists (r,), labels (r,)), numpy.
-    `bucket` is the batch size that served it, set before it resolves."""
+    `bucket` is the batch size that served it, set before it resolves;
+    `submitted_ns` its submit time while a recording is open."""
 
     bucket: int | None = None
+    submitted_ns: int | None = None
 
 
 def _host(x) -> np.ndarray:
@@ -130,6 +139,10 @@ class SearchServer:
             batch = np.zeros((bsz, self.dim), np.float32)
             for i, (vec, _) in enumerate(pending):
                 batch[i] = vec
+            count("serve.fill", len(pending))
+            batch_id = None
+            for _, fut in pending:
+                batch_id = add_span("serve.queue_wait", fut.submitted_ns, batch_id)
             self._exec_q.put((pending, batch))
 
     def _execute_loop(self):
@@ -202,6 +215,7 @@ class SearchServer:
         if query.shape[0] != self.dim:
             raise ValueError(f"query dim {query.shape[0]} != index dim {self.dim}")
         fut = Request()
+        fut.submitted_ns = stamp()
         with self._lock:
             if self._closed:
                 raise RuntimeError("server closed")

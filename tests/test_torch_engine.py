@@ -13,7 +13,10 @@ Tolerances:
   - the CSV strings: equal, character for character.
 """
 
+import contextlib
 import functools
+import itertools
+import time
 
 import jax
 import numpy as np
@@ -27,9 +30,9 @@ from qadc_tpu.io.checkpoint import save_index as jsave_index
 from qadc_tpu.ops.knn import assign_nearest
 from qadc_tpu.quantizers.pq import train_pq
 from qadc_tpu_torch import engine as engine_mod
-from qadc_tpu_torch.engine import QueryEngine, split_phases
+from qadc_tpu_torch.engine import QueryEngine, phase_split
 from qadc_tpu_torch.eval.metrics import PhaseTimer, QueryMetrics
-from qadc_tpu_torch.eval.trace import annotate, timed, trace
+from qadc_tpu_torch.eval.trace import annotate, recording, span, timed, trace
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.io.checkpoint import load_index
 
@@ -124,40 +127,112 @@ def test_metrics_strings_match_the_reference():
     assert timer.lap_us() >= 0.0
 
 
-@pytest.mark.parametrize("times,want", [
-    ((5.0, 8.0, 20.0), (5.0, 3.0, 12.0)),
-    ((5.0, 3.0, 20.0), (5.0, 0.0, 15.0)),     # a shorter longer prefix: noise
-    ((25.0, 30.0, 20.0), (20.0, 0.0, 0.0)),   # prefixes above the full time
-    ((-1.0, 4.0, 20.0), (0.0, 4.0, 16.0)),
-])
-def test_split_phases_sum_to_the_full_time(times, want):
-    got = split_phases(*times)
-    assert got == want
-    assert min(got) >= 0.0 and sum(got) == times[2]
+PHASE_SPANS = {"ivf": ["front.assign", "front.rotate", "front.tables", "front.keep_bound",
+                       "front.int8"],
+               "flat": ["front.rotate", "front.tables", "front.keep_bound", "front.int8"]}
+
+
+def _phases_us(m):
+    return np.array([m.index_us, m.rotate_us, m.table_us, m.scan_us])
+
+
+@contextlib.contextmanager
+def _kept_recordings(monkeypatch):
+    """Keep each Recording that measure_phases opens."""
+    kept, real = [], engine_mod.recording
+
+    @contextlib.contextmanager
+    def keep(**kw):
+        with real(**kw) as rec:
+            kept.append(rec)
+            yield rec
+
+    monkeypatch.setattr(engine_mod, "recording", keep)
+    yield kept
 
 
 @pytest.mark.parametrize("name", ["ivf", "flat"])
 def test_measure_phases_attributes_the_full_search(indexes, name, monkeypatch):
-    """index + rotate + table + scan is the full search's time: the prefixes
-    are timed in the order front, front + tables, full (a fake clock here)."""
+    """index + rotate + table + scan is the search span's time, and each
+    phase is the time of its spans: a clock that advances 1 us a read makes
+    every search alike, so the phases equal one search's split."""
     _, index = indexes[name]
     _, queries = _data()
     engine = QueryEngine(index, r=20, ma=4, keep=0.05, batch_size=8)
-    fake = iter([40.0e-6, 64.0e-6, 400.0e-6])
-    calls = []
-
-    def fake_timed(fn, iters, warmup, device):
-        calls.append(fn)
-        fn()  # each prefix runs
-        return next(fake)
-
-    monkeypatch.setattr(engine_mod, "timed", fake_timed)
-    m = engine.measure_phases(queries[:8])
-    assert len(calls) == 3 and m.count == 1
-    front = m.index_us if name == "ivf" else m.rotate_us
+    ticks = itertools.count(0, 1000)
+    monkeypatch.setattr(time, "time_ns", lambda: next(ticks))
+    qs = torch.from_numpy(queries[:8])
+    with recording() as rec:
+        engine.search(qs)
+    (split,) = phase_split(rec.spans)
+    (search,) = [s for s in rec.spans if s.name == "search"]
+    assert sum(split) == search.end_ns - search.start_ns
+    m = engine.measure_phases(queries[:8], iters=5, warmup=1)
+    assert m.count == 1
+    index_ns, rotate_ns, table_ns, scan_ns = split
+    want = ((index_ns + rotate_ns, 0.0) if name == "ivf" else (0.0, rotate_ns))
+    np.testing.assert_allclose(_phases_us(m) * 8 * 1e3, (*want, table_ns, scan_ns))
     assert (m.index_us if name == "flat" else m.rotate_us) == 0.0
-    np.testing.assert_allclose((front, m.table_us, m.scan_us), (5.0, 3.0, 42.0))
-    np.testing.assert_allclose(m.index_us + m.rotate_us + m.table_us + m.scan_us, 400.0 / 8)
+    assert index_ns == 0 if name == "flat" else index_ns > 0
+    assert min(split) > 0 or name == "flat"
+
+
+@pytest.mark.parametrize("name", ["ivf", "flat"])
+def test_measure_phases_sum_to_the_median_search(indexes, name, monkeypatch):
+    _, index = indexes[name]
+    _, queries = _data()
+    engine = QueryEngine(index, r=20, ma=4, keep=0.05, batch_size=8)
+    with _kept_recordings(monkeypatch) as kept:
+        m = engine.measure_phases(queries[:8], iters=7, warmup=1)
+    (rec,) = kept
+    searches = sorted(s.end_ns - s.start_ns for s in rec.spans if s.name == "search")
+    assert len(searches) == 7
+    np.testing.assert_allclose(_phases_us(m).sum() * 8 * 1e3, searches[3], rtol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["ivf", "flat"])
+def test_measure_phases_inside_an_open_span(indexes, name, monkeypatch):
+    """A span open around measure_phases (with its own recording) leaves
+    each search's phases to that search: non-negative, summing to the
+    median search."""
+    _, index = indexes[name]
+    _, queries = _data()
+    engine = QueryEngine(index, r=20, ma=4, keep=0.05, batch_size=8)
+    with _kept_recordings(monkeypatch) as kept, recording() as outer, span("job"):
+        m = engine.measure_phases(queries[:8], iters=5, warmup=1)
+    (rec,) = kept
+    splits = phase_split(rec.spans)
+    assert len(splits) == 5 and all(min(split) >= 0 for split in splits)
+    assert (_phases_us(m) >= 0).all() and m.table_us > 0 and m.scan_us > 0
+    searches = sorted(s.end_ns - s.start_ns for s in rec.spans if s.name == "search")
+    np.testing.assert_allclose(_phases_us(m).sum() * 8 * 1e3, searches[2], rtol=1e-9)
+    (job,) = [s for s in outer.spans if s.name == "job"]  # and the warm-up's spans
+    assert {s.batch for s in rec.spans} == {job.batch}     # the batch id is the job's
+    assert all(s.parent == job.id for s in rec.spans if s.name == "search")
+
+
+@pytest.mark.parametrize("name", ["ivf", "flat"])
+def test_phases_are_nonnegative_and_in_span_order(indexes, name, monkeypatch):
+    _, index = indexes[name]
+    _, queries = _data()
+    engine = QueryEngine(index, r=20, ma=4, keep=0.05, batch_size=8)
+    with _kept_recordings(monkeypatch) as kept:
+        m = engine.measure_phases(queries[:8], iters=3, warmup=0)
+    assert (_phases_us(m) >= 0).all() and m.scan_us > 0
+    for split in phase_split(kept[0].spans):
+        assert min(split) >= 0
+    by_batch = {}
+    for s in sorted(kept[0].spans, key=lambda s: s.start_ns):
+        by_batch.setdefault(s.batch, []).append(s)
+    assert len(by_batch) == 3
+    for batch in by_batch.values():
+        search = next(s for s in batch if s.name == "search")
+        front = [s for s in batch if s.name.startswith("front.")]
+        assert [s.name for s in front] == PHASE_SPANS[name]
+        assert all(s.parent == search.id for s in front)
+        for a, b in zip(front, front[1:]):
+            assert a.end_ns <= b.start_ns
+        assert search.start_ns <= front[0].start_ns and front[-1].end_ns <= search.end_ns
 
 
 def test_measure_phases_on_the_cpu_clock(indexes):
