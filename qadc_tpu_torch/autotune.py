@@ -13,7 +13,8 @@ Opt in two ways:
   - explicit: `tune_ivf_qadc(index, queries, r=, ma=, keep=)` records a
     pick; later `ivf.search_qadc` calls that pass no `group_size` use it;
   - `QADC_AUTOTUNE=1`: a search with no recorded pick tunes on its first
-    call for its (geometry, batch bucket).
+    call for its (geometry, batch bucket); a search captured into a CUDA
+    graph does not tune, and takes the default.
 
 The cache file is `QADC_AUTOTUNE_CACHE`, by default
 ~/.cache/qadc_tpu_torch/autotune.json. The JAX package's bundled
@@ -105,8 +106,14 @@ def record(key: str, pick: dict) -> None:
         _save_disk()
 
 
-def enabled() -> bool:
-    return os.environ.get("QADC_AUTOTUNE", "").strip() in ("1", "true", "on")
+def enabled(device) -> bool:
+    """Whether a search on `device` with no recorded pick tunes first:
+    QADC_AUTOTUNE is set, and no CUDA graph is being captured on the
+    device's current stream (tuning times searches with events and
+    synchronises, which a capture cannot hold)."""
+    if os.environ.get("QADC_AUTOTUNE", "").strip() not in ("1", "true", "on"):
+        return False
+    return torch.device(device).type != "cuda" or not torch.cuda.is_current_stream_capturing()
 
 
 def _time_group_size(index, queries, group_size: int, iters: int, **search_kw) -> float:

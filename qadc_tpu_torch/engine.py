@@ -14,20 +14,34 @@ between the events of its spans (on the CPU, the host clock's). The front spans 
 spans the table phase, and the rest of the search span the scan phase, so
 index + rotate + table + scan is the search's own time by construction.
 
-Spans of `run`: `engine.batch` (self time: the numpy work of a batch) holds
-`engine.copy_in`, the search's `search` span and `engine.copy_out` (the
-results to the host, where the host waits for the device).
+`run` replays each batch's search as one CUDA graph on a CUDA index. The
+first batch becomes the graph's static (batch_size, dim) input, is searched
+once eagerly on a side stream (autotune, the scan budget and the kernel
+library settle there, on real queries) and the search is captured; every
+batch then copies into the input and replays. The graph is kept for the
+engine's index and `graph_key()`, the search's arguments, and captured anew
+when either changes. Searches stay eager in `search` (the server's), in
+`measure_phases`, on a CPU index, and for a first batch that arrives while
+a recording is open. A replay runs the search's kernels without Python:
+`lut_scan.launches` does not count them, and no span is recorded inside its
+`search` span (attr `path="graph"`).
+
+Spans of `run`: `engine.batch` (self time: the numpy work of a batch; attr
+`graph`: "replay", "capture" or "eager") holds `engine.copy_in`, the
+search's `search` span and `engine.copy_out` (the results to the host,
+where the host waits for the device).
 """
 
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from qadc_tpu_torch.eval.metrics import QueryMetrics
-from qadc_tpu_torch.eval.trace import recording, span
+from qadc_tpu_torch.eval.trace import recording, recording_open, span
 from qadc_tpu_torch.index import flat, ivf
 from qadc_tpu_torch.index.flat import FlatIndex
 from qadc_tpu_torch.index.ivf import IVFIndex
@@ -81,6 +95,17 @@ def phase_split(spans) -> list[tuple[float, float, float, float]]:
     return out
 
 
+class _Graph(NamedTuple):
+    """A captured search: the index and `graph_key()` it was captured for,
+    the graph, its static input and its outputs."""
+
+    index: object
+    key: tuple
+    graph: torch.cuda.CUDAGraph
+    static_in: torch.Tensor
+    out: tuple
+
+
 class QueryEngine:
     """Runs fixed-size query batches against a flat or IVF index."""
 
@@ -101,6 +126,19 @@ class QueryEngine:
         self.adc_type = adc_type
         self.batch_size = batch_size
         self.rerank = rerank
+        self._graph: _Graph | None = None
+
+    def graph_key(self) -> tuple:
+        """The search's arguments: with the index, what a captured search
+        depends on besides its input's values."""
+        return (self.batch_size, self.r, self.ma, self.keep, self.adc_type, self.rerank)
+
+    def _kept_graph(self) -> _Graph | None:
+        """The engine's graph if it was captured for its index and key now."""
+        g = self._graph
+        if g is not None and g.index is self.index and g.key == self.graph_key():
+            return g
+        return None
 
     def search(self, queries: torch.Tensor):
         """One batch on the index's device: (dists (Q, r), labels (Q, r))."""
@@ -149,6 +187,10 @@ class QueryEngine:
         with_metrics=True measures the phases once, on the first batch
         (padded to batch_size), as the reference's CSV averages over queries.
 
+        On a CUDA index each batch replays the engine's CUDA graph (module
+        docstring), so one engine's `run` is not for two threads at once:
+        their batches would share the graph's input and outputs.
+
         Returns (dists (Q, r), labels (Q, r), QueryMetrics), numpy.
         """
         queries = np.asarray(queries, np.float32)
@@ -163,14 +205,28 @@ class QueryEngine:
         all_d, all_l = [], []
         short = 0
         for s in range(0, q, b):
-            with span("engine.batch"):
+            with span("engine.batch") as sp:
                 batch = queries[s:s + b]
                 n = batch.shape[0]
                 if n < b:
                     batch = np.concatenate([batch, np.zeros((b - n, dim), np.float32)])
+                g = self._kept_graph()
+                if g is None and dev.type == "cuda" and not recording_open():
+                    g, mode = self._capture(batch), "capture"
+                else:
+                    mode = "eager" if g is None else "replay"
+                sp.set(graph=mode)
                 with span("engine.copy_in"):
-                    x = torch.from_numpy(batch).to(dev)
-                d, lab = self.search(x)
+                    if g is None:
+                        x = torch.from_numpy(batch).to(dev)
+                    else:
+                        g.static_in.copy_(torch.from_numpy(batch))
+                if g is None:
+                    d, lab = self.search(x)
+                else:
+                    with span("search", path="graph"):
+                        g.graph.replay()
+                    d, lab = g.out
                 with span("engine.copy_out"):
                     d, lab = d[:n].cpu().numpy(), lab[:n].cpu().numpy()
                 short += int(np.any(~np.isfinite(d), axis=1).sum())
@@ -183,3 +239,22 @@ class QueryEngine:
                   "queries (index smaller than r, or probed partitions too "
                   "small — +inf sentinels returned)", file=sys.stderr)
         return out_d, out_l, metrics
+
+    def _capture(self, batch: np.ndarray) -> _Graph:
+        """Capture this engine's search of a (batch_size, dim) static input,
+        which starts as `batch`, as a CUDA graph, after one eager search of
+        it, both on a side stream; keep it as the engine's graph. A graph
+        kept before is dropped first, so its memory pool is freed."""
+        self._graph = None
+        dev = self.index.device
+        with torch.cuda.device(dev):
+            static_in = torch.from_numpy(batch).to(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.search(static_in)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = self.search(static_in)
+        self._graph = _Graph(self.index, self.graph_key(), graph, static_in, out)
+        return self._graph

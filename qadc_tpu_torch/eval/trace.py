@@ -6,7 +6,8 @@ Spans and counters, on the host clock that torch.profiler shares:
   - `count(name, value)` records a count where the work happens: a host
     int, or a 0-d device tensor that is read only when the recording closes;
   - `recording()` turns both on for a block and yields a `Recording` with
-    the spans and counts of every thread.
+    the spans and counts of every thread; `recording_open()` says whether
+    one is.
 Off, which is the default, a span is one check of a module-level flag and
 a shared object that does nothing: no clock read, no allocation, no device
 call. On, a span takes two `time.time_ns()` reads, the profiler's own clock
@@ -202,6 +203,11 @@ def count(name: str, value) -> None:
         return
     stack = _stack.open
     rec.counts.append(Count(name, value, stack[-1][1] if stack else None))
+
+
+def recording_open() -> bool:
+    """Whether a recording is open on any thread."""
+    return _rec is not None
 
 
 def stamp() -> int | None:

@@ -543,7 +543,8 @@ def search_qadc(
       the per-probe path (_search_qadc_impl), the JAX package's CPU path.
     group_size: pairs a grouped scan serves together (index/routing.py).
       None takes the pick autotune recorded for this geometry and batch
-      bucket (tuning first under QADC_AUTOTUNE=1), else
+      bucket (tuning first under QADC_AUTOTUNE=1, unless a CUDA graph is
+      being captured), else
       autotune.DEFAULT_GROUP_SIZE; the results do not depend on it.
     saturate: reproduce the reference's saturating int8 sums (min(sum, 127)).
     scan_budget_bytes: memory governor budget (default: 35% of the card's
@@ -586,7 +587,7 @@ def search_qadc(
             grouped = geometry_ok
         if grouped and group_size is None:
             pick = autotune.lookup(autotune.geometry_key(index, "ivf_qadc_grouped", q))
-            if not pick and autotune.enabled():
+            if not pick and autotune.enabled(dev):
                 pick = autotune.tune_ivf_qadc(index, queries, r=r, ma=ma, keep=keep)
             group_size = pick.get("group_size", autotune.DEFAULT_GROUP_SIZE)
         if group_size is not None and group_size < 1:

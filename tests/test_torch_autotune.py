@@ -148,6 +148,18 @@ def test_enabled_tunes_on_the_first_search(built, monkeypatch):
     assert calls == [(20, 4, 0.05)]
 
 
+@pytest.mark.parametrize("capturing", [False, True])
+def test_a_search_captured_into_a_graph_does_not_tune(monkeypatch, capturing):
+    """Under QADC_AUTOTUNE=1 a card search tunes unless its stream is being
+    captured (tuning synchronises); on the CPU the switch alone decides."""
+    monkeypatch.setenv("QADC_AUTOTUNE", "1")
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    assert autotune.enabled("cuda") is not capturing
+    assert autotune.enabled(torch.device("cpu"))
+    monkeypatch.delenv("QADC_AUTOTUNE")
+    assert not autotune.enabled("cuda")
+
+
 def _fake_times(monkeypatch, times):
     calls = []
 
