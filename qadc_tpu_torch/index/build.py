@@ -24,6 +24,7 @@ import torch
 
 from qadc_tpu_torch.core.layout import codes_per_row, pad_codes_to_block, to_row128
 from qadc_tpu_torch.core.tensors import to_f32
+from qadc_tpu_torch.eval.trace import span
 from qadc_tpu_torch.index.flat import FlatIndex
 from qadc_tpu_torch.index.ivf import PART_ALIGN, IVFIndex
 from qadc_tpu_torch.ops.knn import assign_nearest
@@ -144,9 +145,10 @@ class IVFBuilder:
             return
         codes_parts, assign_parts = [], []
         for chunk in _batches(vectors, encode_batch, self.coarse.device):
-            a = assign_nearest(chunk, self.coarse)
-            codes_parts.append(encode(self.pq, chunk - self.coarse[a.long()]).cpu().numpy())
-            assign_parts.append(a.cpu().numpy())
+            with span("build.encode"):
+                a = assign_nearest(chunk, self.coarse)
+                codes_parts.append(encode(self.pq, chunk - self.coarse[a.long()]).cpu().numpy())
+                assign_parts.append(a.cpu().numpy())
         codes_np = np.concatenate(codes_parts)
         assign_np = np.concatenate(assign_parts)
         new_labels = np.arange(self.n, self.n + count, dtype=np.int32)

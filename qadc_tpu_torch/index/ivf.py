@@ -156,12 +156,13 @@ def train_coarse(generator, learn_vectors, part_count: int, iters: int = 50,
 
     Returns (part_count, dim) float32 centroids.
     """
-    x = as_f32(learn_vectors, device)
-    gen = as_generator(generator, x.device)
-    centroids, _ = kmeans(gen, x, part_count, iters)
-    if balance_cap is not None:
-        centroids, _ = balance_centroids(gen, x, centroids, cap_ratio=balance_cap)
-    return centroids
+    with span("build.train_coarse"):
+        x = as_f32(learn_vectors, device)
+        gen = as_generator(generator, x.device)
+        centroids, _ = kmeans(gen, x, part_count, iters)
+        if balance_cap is not None:
+            centroids, _ = balance_centroids(gen, x, centroids, cap_ratio=balance_cap)
+        return centroids
 
 
 def compute_residuals(index: IVFIndex, vectors, assignments) -> torch.Tensor:
@@ -174,12 +175,20 @@ def compute_residuals(index: IVFIndex, vectors, assignments) -> torch.Tensor:
 def add(index: IVFIndex, vectors, encode_batch: int = 262144) -> IVFIndex:
     """Assign -> residual -> encode -> scatter into partitions: a one-shot
     wrapper over index/build.IVFBuilder. For streamed ingest use the builder
-    directly, so that buffers append in place and padding happens once."""
+    directly, so that buffers append in place and padding happens once.
+
+    Spans: `build.add` around it all, a `build.encode` for each chunk of
+    encode_batch vectors; counters `build.vectors` (vectors added) and
+    `build.part_max` (the largest partition after, which sets part_pad)."""
     from qadc_tpu_torch.index.build import IVFBuilder
 
-    b = IVFBuilder.from_index(index)
-    b.add(vectors, encode_batch=encode_batch)
-    return b.finalize()
+    with span("build.add"):
+        b = IVFBuilder.from_index(index)
+        b.add(vectors, encode_batch=encode_batch)
+        out = b.finalize()
+        count("build.vectors", len(vectors))
+        count("build.part_max", out.max_part_size)
+    return out
 
 
 def assign_queries(index: IVFIndex, queries: torch.Tensor, ma: int):

@@ -16,6 +16,7 @@ import torch
 
 from qadc_tpu_torch.core.tensors import (DEFAULT_DEVICE, as_f32, as_generator,
                                          full_f32_matmul, to_f32)
+from qadc_tpu_torch.eval.trace import span
 from qadc_tpu_torch.ops.kmeans import lloyd_refine
 from qadc_tpu_torch.quantizers.pq import (ProductQuantizer, decode_rows, encode_indices,
                                           train_pq)
@@ -85,16 +86,17 @@ def train_opq(generator, x, sq_count: int, sq_bits: int, opq_iters: int = 20,
 
     Returns an OPQQuantizer on the data's device.
     """
-    x = as_f32(x, device)
-    gen = as_generator(generator, x.device)
-    dim = x.shape[1]
-    if init_rotation is None:
-        rotation = torch.eye(dim, dtype=torch.float32, device=x.device)
-    else:
-        rotation = to_f32(init_rotation, x.device)
-    with full_f32_matmul():
-        xr = x @ rotation.T
-    centroids = train_pq(gen, xr, sq_count, sq_bits, iters=kmeans_iters).centroids
-    for _ in range(opq_iters):
-        rotation, centroids = opq_round(x, rotation, centroids, sq_bits, kmeans_iters)
-    return OPQQuantizer(centroids=centroids, sq_bits=sq_bits, rotation=rotation).validate()
+    with span("build.train_opq"):
+        x = as_f32(x, device)
+        gen = as_generator(generator, x.device)
+        dim = x.shape[1]
+        if init_rotation is None:
+            rotation = torch.eye(dim, dtype=torch.float32, device=x.device)
+        else:
+            rotation = to_f32(init_rotation, x.device)
+        with full_f32_matmul():
+            xr = x @ rotation.T
+        centroids = train_pq(gen, xr, sq_count, sq_bits, iters=kmeans_iters).centroids
+        for _ in range(opq_iters):
+            rotation, centroids = opq_round(x, rotation, centroids, sq_bits, kmeans_iters)
+        return OPQQuantizer(centroids=centroids, sq_bits=sq_bits, rotation=rotation).validate()
