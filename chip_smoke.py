@@ -572,6 +572,52 @@ def main() -> int:
                          lambda args=args: lut_scan.grouped_scan_plain(*args), exact_int,
                          *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
 
+    # M1 at Deep100M's geometry (the benchmark's deep100m-ivf-b512 cell):
+    # b=512 x ma=24 probes of 4096 lists, G=128, list sizes drawn (gamma,
+    # shape 4) to a mean of DEEP_N / DEEP_PARTS = 24,414 codes, part_pad
+    # the largest rounded up to ivf.PART_ALIGN (~70k, as the real build's:
+    # the largest list ~3x the mean), random distinct probes and int8
+    # tables; 2.3 GB of codes in HBM. The bound counts the real codes of
+    # the probed lists once (M1 reads no padded code), the tables, the
+    # routing and the (QA, rpp) output.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20)
+    deep_sizes = torch.from_numpy(np.maximum(1, np.random.default_rng(20).gamma(
+        4.0, DEEP_N / DEEP_PARTS / 4.0, DEEP_PARTS)).round().astype(np.int32)).to(device)
+    deep_pad = -(-int(deep_sizes.max()) // ivf.PART_ALIGN) * ivf.PART_ALIGN
+    deep_codes = torch.randint(0, 256, (DEEP_PARTS, deep_pad // 16, 128), dtype=torch.uint8,
+                               device=device, generator=gen)
+    deep_probes = torch.multinomial(torch.ones(DEEP_BATCHES[-1], DEEP_PARTS, device=device), MA,
+                                    generator=gen).to(torch.int32)
+    deep_routed = route_queries(deep_probes, DEEP_PARTS, 128)
+    deep_qa = deep_probes.numel()
+    deep_args = (deep_codes,
+                 torch.randint(0, 128, (deep_qa, 16, 16), dtype=torch.int8, device=device,
+                               generator=gen),
+                 deep_routed.group_part, deep_routed.slot_pairs(),
+                 torch.where(deep_routed.group_valid,
+                             deep_sizes[deep_routed.group_part.long()], 0).to(torch.int32))
+    probed = torch.unique(deep_probes.long())
+    deep_real = int(((deep_sizes[probed].long() + 15) // 16).sum()) * 128
+    print(f"M1 deep100m: b={DEEP_BATCHES[-1]} ma={MA} P={DEEP_PARTS} part_pad={deep_pad} "
+          f"mean list {float(deep_sizes.float().mean()):.0f}, {probed.numel()} lists probed, "
+          f"{deep_real / 1e9:.3f} GB of real codes, {deep_routed.gcap} groups "
+          f"({int(deep_routed.n_groups)} live)", flush=True)
+    check(torch.equal(lut_scan.grouped_scan(*deep_args), lut_scan.grouped_scan_lookup(*deep_args)),
+          "grouped_scan[deep] differs from the lookup kernel")
+    for name, fn, cu_name, src in (
+        ("grouped_scan", lut_scan.grouped_scan, "grouped_scan_mma_kernel", "scan_mma.cu"),
+        ("grouped_scan_lookup", lut_scan.grouped_scan_lookup, "grouped_scan_kernel",
+         "grouped_scan.cu"),
+    ):
+        kernel_phase(f"{name}[deep b=512]", cu_name, f"qadc_tpu_torch/csrc/{src}",
+                     "qadc_tpu/kernels/lut_scan.py:857", lambda fn=fn: fn(*deep_args),
+                     lambda: lut_scan.grouped_scan_plain(*deep_args), exact_int,
+                     deep_real + nbytes(*deep_args[1:]),
+                     int(deep_sizes[deep_probes.long()].sum()) * 16, PEAK_INT8)
+    del deep_codes, deep_args
+    torch.cuda.empty_cache()
+
     # M3 at the pairs the direct path hands it (a Kernels whose direct_scan
     # keeps its arguments): b=1, and b=32 and 128 forced direct, by the
     # chunked kernel and by the arm it replaced (direct_scan_blocks) in turns.

@@ -31,20 +31,47 @@
 // runs the warpgroup kernel of scan_wgmma.cu (0.069 ms); this kernel serves
 // smaller batches, where its time follows the query count, and M1.
 //
-// Design (scan_mma.cuh): a warp keeps the A fragments of 16*MT table rows in
-// registers (flat: MT = 1, 2 or 4 by the batch at CB = 8, so one one-hot
-// build feeds up to four mma; 1 or 2 at CB = 16) and walks octs of eight
-// storage rows, which it copies into its own shared-memory ring two octs
-// ahead (cp.async; the codes stay in L2), building the B fragment in
-// registers and storing one 32-byte sector per (query, oct).
-// The flat grid is one wave of blocks, so A is loaded once a warp.
+// Design of the flat kernel (scan_mma.cuh): a warp keeps the A fragments of
+// 16*MT table rows in registers (MT = 1, 2 or 4 by the batch at CB = 8, so
+// one one-hot build feeds up to four mma; 1 or 2 at CB = 16) and walks octs
+// of eight storage rows, which it copies into its own shared-memory ring two
+// octs ahead (cp.async; the codes stay in L2), building the B fragment in
+// registers and storing one 32-byte sector per (query, oct). The flat grid is
+// one wave of blocks, so A is loaded once a warp.
 //
-// grouped_scan_mma_kernel: one block per (group, share of the row octs).
-// The block gathers the group's live slots into a list (the table gather by
-// slot_pair replaces the lookup kernel's shared-memory staging), and each
-// pass takes 16*MT of them as the A rows: the mma count of a pass does not
-// depend on how many of its rows are live. A chunk of 1024 slots with no
-// live slot does no work; a group of any size runs.
+// M1 (grouped_scan_mma_kernel*) turns the product around: codes on the
+// mma's M side, a group's live pairs on N. A = the one-hot of 16 codes (one
+// storage row at CB = 8, two at CB = 16), B = the tables of 8 pairs (an N
+// tile, in registers while the warp stays in the group), C = 16 codes x 8
+// pairs: 8 mma.sync a row at CB = 8 for up to 8 live pairs, where 16 table
+// rows on M took 16 whatever their live count. A group has ~3 live pairs
+// when a batch probes thousands of lists (b = 512 x 24 probes of 4096) and
+// ~12 over 256 lists (b = 128); its tile count follows its live count, up to
+// G / 8, in chunks of NT tiles held in registers (NT = 2 at CB = 8 where the
+// batch has more than 8 pairs a list, else 1: lut_scan.grouped_mma_tiles).
+//
+// The A fragment is built by byte permutes: k-step 2q + h of a code takes
+// the four nibbles N_i of its bytes 2q, 2q + 1 (the 16-bit selector of a
+// prmt) at the values 8h + t (k = 4t + i) and 8h + 4 + t (k = 16 + 4t + i),
+// so each A register is one prmt of the lane's constant 1 << 8t (a source
+// byte per value) by the code's nibbles, bit 3 flipped for h = 1 (a
+// selector nibble with bit 3 set replicates a zero sign); B is the tables
+// byte-transposed to match, once a group. That is 32 integer instructions
+// a row for A, where a clamped shift a nibble took 64 (M1 at Deep100M's
+// geometry 1.46 -> 1.27 ms on an H100 80GB HBM3). The integer pipe then
+// bounds the scan: copying the codes alone and storing the rows took 0.40 ms.
+//
+// Three launches, none of whose shape depends on the data (CUDA-graph safe):
+//   _plan (a warp a group): the live pairs packed, their count, the group's
+//     cost (its real octs times a one-hot build a chunk plus a unit a tile);
+//   _prefix (one block): the costs' prefix sum, and the real rows walked;
+//   the scan, one wave of blocks: warp w walks the octs of its 1/W of the
+//     cost prefix across groups, codes streaming through its ring three octs
+//     ahead (HBM latency behind the compute of the octs before), a group's
+//     tables loaded once when the walk enters it; between octs it writes
+//     the sentinel rows of groups w, w + W, .. (past the group's last real
+//     oct) by plain 16-byte stores. Blocks that would find no real row (2/3
+//     of the padded grid of a list 2.7-3x the mean) are never launched.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,69 +82,532 @@ namespace {
 
 using namespace qadc;
 
-constexpr int kSlotChunk = 1024;  // slots gathered at a time
+// ---- M1: a persistent walk over the real rows of the live groups
 
-template <int CB, int MT>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-grouped_scan_mma_kernel(const uint8_t* __restrict__ codes,        // (P, rpp, 128)
-                        const int8_t* __restrict__ tables,        // (QA, 2*CB, 16)
-                        const int32_t* __restrict__ group_part,   // (gcap,)
-                        const int32_t* __restrict__ slot_pair,    // (gcap, G), -1 = empty
-                        const int32_t* __restrict__ group_sizes,  // (gcap,) real codes
-                        int32_t* __restrict__ out,                // (QA, rpp)
-                        int rpp, int group_size) {
-  __shared__ int s_pair[kSlotChunk];
-  __shared__ int s_live;
-  __shared__ CodeRing rings[kMmaWarps];
-  const int grp = blockIdx.x;
+constexpr int kGroupedStages = 4;           // octs a warp keeps in flight or in use
+using GroupedRing = uint4[kGroupedStages][kOct * 8];
+constexpr int kPrefixThreads = 1024;
+constexpr int kPrefixPerThread = 8;
+constexpr int kNone16 = 0x7FFF;             // a 16-bit lane with no real code
+constexpr uint32_t kNonePair = 0x7FFF7FFFu;
+
+// A warp's cost of one oct of a group with `tiles` N tiles: a one-hot build
+// (kOneHotCost) a chunk of NT tiles, and one unit a tile. Mirrored by
+// lut_scan.grouped_scan_mma_plan.
+constexpr int kOneHotCost = 4;
+
+__device__ __forceinline__ int real_rows(int size, int rpp, int cpr) {
+  return size <= 0 ? 0 : min(rpp, (size + cpr - 1) / cpr);
+}
+
+template <int NT>
+__device__ __forceinline__ int oct_cost(int live) {
+  const int tiles = (live + 7) / 8;
+  return (tiles + NT - 1) / NT * kOneHotCost + tiles;
+}
+
+// The plan, a warp a group: its live pairs packed to the front of its row of
+// live_pairs (any order: a pair owns its out row), their count, and
+// base[g + 1] = the group's cost, octs * oct_cost, with its real rows in the
+// high 32 bits (both 0 without a live pair).
+template <int CB, int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+grouped_scan_mma_kernel_plan(const int32_t* __restrict__ slot_pair,    // (gcap, G), -1 = empty
+                             const int32_t* __restrict__ group_sizes,  // (gcap,)
+                             int32_t* __restrict__ live_pairs,         // (gcap, G)
+                             int32_t* __restrict__ live,               // (gcap,)
+                             long long* __restrict__ base,             // (gcap + 2,)
+                             int gcap, int group_size, int rpp) {
+  const int grp = blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int32_t* pairs = slot_pair + static_cast<size_t>(grp) * group_size;
-  const uint8_t* part = codes + static_cast<size_t>(group_part[grp]) * rpp * 128;
-  const int size = group_sizes[grp];
-
-  for (int first = 0; first < group_size; first += kSlotChunk) {
-    if (threadIdx.x == 0) s_live = 0;
-    __syncthreads();
-    for (int s = first + threadIdx.x; s < min(first + kSlotChunk, group_size); s += kMmaThreads) {
-      const int p = pairs[s];
-      if (p >= 0) s_pair[atomicAdd(&s_live, 1)] = p;  // any order: a pair owns its out row
-    }
-    __syncthreads();
-    const int live = s_live;
-    for (int s0 = 0; s0 < live; s0 += 16 * MT) {
-      const int nt = min(MT, (live - s0 + 15) >> 4);
-      int idx[MT][2];
-#pragma unroll
-      for (int j = 0; j < MT; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int s = s0 + 16 * j + (lane >> 2) + 8 * h;
-          idx[j][h] = s < live ? s_pair[s] : -1;
-        }
-      uint32_t a[MT][CB][4];
-      load_a<CB, MT>(a, nt, tables, idx, lane & 3);
-      const int warp = threadIdx.x >> 5;
-      scan_rows<CB, MT, kFull, false>(a, nt, part, rpp, size, blockIdx.y * kMmaWarps + warp,
-                                      gridDim.y * kMmaWarps, idx, out, nullptr, 0, rings[warp]);
-    }
-    __syncthreads();  // the list is rewritten by the next chunk
+  if (grp >= gcap) return;
+  const int32_t* slots = slot_pair + static_cast<size_t>(grp) * group_size;
+  int32_t* packed = live_pairs + static_cast<size_t>(grp) * group_size;
+  int n = 0;
+  for (int s0 = 0; s0 < group_size; s0 += 32) {
+    const int p = s0 + lane < group_size ? slots[s0 + lane] : -1;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, p >= 0);
+    if (p >= 0) packed[n + __popc(m & ((1u << lane) - 1u))] = p;
+    n += __popc(m);
+  }
+  if (lane == 0) {
+    live[grp] = n;
+    const int rows = n ? real_rows(group_sizes[grp], rpp, 128 / CB) : 0;
+    base[grp + 1] = (static_cast<long long>(rows) << 32) |
+                    static_cast<long long>((rows + kOct - 1) / kOct * oct_cost<NT>(n));
+    if (grp == 0) base[0] = 0;
   }
 }
 
-template <int CB, int MT>
-cudaError_t launch_grouped(const void* codes, const void* tables, const void* group_part,
-                           const void* slot_pair, const void* group_sizes, void* out, int gcap,
-                           int group_size, int rpp, cudaStream_t stream) {
-  // One oct a warp: many short blocks balance the groups' uneven sizes (0.055 ms
-  // against 0.061 with two octs a warp, 128 queries x 24 probes on an H100).
-  // At most 65535 blocks along y.
-  const int octs = (rpp + kOct - 1) / kOct;
-  int gy = (octs + kMmaWarps - 1) / kMmaWarps;
-  gy = gy > 65535 ? 65535 : gy;
-  grouped_scan_mma_kernel<CB, MT><<<dim3(gcap, gy), kMmaThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(tables),
-      static_cast<const int32_t*>(group_part), static_cast<const int32_t*>(slot_pair),
-      static_cast<const int32_t*>(group_sizes), static_cast<int32_t*>(out), rpp, group_size);
+// base[1..gcap] (the plan's words) to the inclusive prefix sum of the
+// groups' costs in place, and base[gcap + 1] = the real storage rows of the
+// live groups (the rows the scan walks; read as the counter scan.rows): one
+// block.
+__global__ void __launch_bounds__(kPrefixThreads)
+grouped_scan_mma_kernel_prefix(long long* __restrict__ base, int gcap) {
+  __shared__ long long s_warp[kPrefixThreads / 32];
+  __shared__ unsigned long long s_rows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_rows = 0;
+  long long carry = 0;
+  unsigned long long rows = 0;
+  for (int first = 0; first < gcap; first += kPrefixThreads * kPrefixPerThread) {
+    const int i0 = first + threadIdx.x * kPrefixPerThread;
+    long long v[kPrefixPerThread];
+    long long sum = 0;
+#pragma unroll
+    for (int k = 0; k < kPrefixPerThread; ++k) {
+      const long long word = i0 + k < gcap ? base[1 + i0 + k] : 0;
+      rows += static_cast<unsigned long long>(word >> 32);
+      v[k] = word & 0xFFFFFFFFll;
+    }
+#pragma unroll
+    for (int k = 0; k < kPrefixPerThread; ++k) v[k] = sum += v[k];
+    long long x = sum;  // the warp's inclusive scan of the threads' sums
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = s_warp[lane];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const long long y = __shfl_up_sync(0xFFFFFFFFu, w, d);
+        if (lane >= d) w += y;
+      }
+      s_warp[lane] = w;
+    }
+    __syncthreads();
+    const long long before = carry + (warp ? s_warp[warp - 1] : 0) + x - sum;
+#pragma unroll
+    for (int k = 0; k < kPrefixPerThread; ++k)
+      if (i0 + k < gcap) base[1 + i0 + k] = before + v[k];
+    carry += s_warp[kPrefixThreads / 32 - 1];
+    __syncthreads();  // s_warp is rewritten by the next round
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) rows += __shfl_down_sync(0xFFFFFFFFu, rows, d);
+  if (lane == 0) atomicAdd(&s_rows, rows);
+  __syncthreads();
+  if (threadIdx.x == 0) base[gcap + 1] = static_cast<long long>(s_rows);
+}
+
+struct GroupedArgs {
+  const uint8_t* codes;         // (P, rpp, 128)
+  const int8_t* tables;         // (QA, 2*CB, 16)
+  const int32_t* group_part;    // (gcap,)
+  const int32_t* group_sizes;   // (gcap,) real codes
+  const int32_t* live_pairs;    // (gcap, G), the plan's
+  const int32_t* live;          // (gcap,)
+  const long long* base;        // (gcap + 2,) prefix of the groups' costs, rows
+  int32_t* out;                 // (QA, rpp)
+  int rpp, group_size, gcap;
+};
+
+// The largest g with base[g] <= x, for base[0] <= x < base[gcap]: a 32-way
+// search, every lane a probe.
+__device__ __forceinline__ int locate(const long long* __restrict__ base, int gcap, long long x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = gcap;  // base[lo] <= x < base[hi]
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, i < hi && base[i] <= x);
+    if (m == 0) break;  // base[lo] > x: not a prefix (cannot happen)
+    lo += (31 - __clz(m)) * step;
+    hi = min(hi, lo + step);
+  }
+  return lo;
+}
+
+// One warp's place in its share of the octs: group g, oct o, up to oend.
+struct OctCursor {
+  int g, o, oend, live, size, rows;
+  const uint8_t* part;
+};
+
+// The first oct whose first cost unit lies in [x, end), from the group
+// holding x on; false if none.
+template <int CB, int NT>
+__device__ bool enter(OctCursor& c, long long x, long long end, const GroupedArgs& p) {
+  while (x < end) {
+    const int g = locate(p.base, p.gcap, x);
+    const long long b0 = p.base[g];
+    const int live = p.live[g];
+    const int size = p.group_sizes[g];
+    const int rows = real_rows(size, p.rpp, 128 / CB);
+    const long long cost = oct_cost<NT>(live);
+    const long long o = (x - b0 + cost - 1) / cost;
+    const long long oend = min(static_cast<long long>((rows + kOct - 1) / kOct),
+                               (end - b0 + cost - 1) / cost);
+    if (o < oend) {
+      c.g = g;
+      c.o = static_cast<int>(o);
+      c.oend = static_cast<int>(oend);
+      c.live = live;
+      c.size = size;
+      c.rows = rows;
+      c.part = p.codes + static_cast<size_t>(p.group_part[g]) * p.rpp * 128;
+      return true;
+    }
+    x = p.base[g + 1];
+  }
+  return false;
+}
+
+template <int CB, int NT>
+__device__ __forceinline__ bool next_oct(OctCursor& c, long long end, const GroupedArgs& p) {
+  if (++c.o < c.oend) return true;
+  return enter<CB, NT>(c, p.base[c.g + 1], end, p);
+}
+
+// B fragments of chunk `chunk` of the cursor's group (N tile j: pairs 8j..8j+7
+// of the chunk, column gl = lane >> 2 this lane's; k-step 2q + h: byte i of
+// b0 entry 8h + t, of b1 entry 8h + 4 + t, of table 4q + i) and the pair ids
+// the lane stores for (columns 2t, 2t + 1); -1: no pair, zero tables.
+template <int CB, int NT>
+__device__ __forceinline__ void load_tiles(uint32_t (&bt)[NT][CB][2], int (&pid)[NT][2],
+                                           const GroupedArgs& p, const OctCursor& c, int chunk) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const uint32_t pick = static_cast<uint32_t>(t | ((t + 4) << 4));  // byte t of each word
+  const int32_t* pairs = p.live_pairs + static_cast<size_t>(c.g) * p.group_size;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int s = (chunk * NT + j) * 8;
+    const int pb = s + (lane >> 2) < c.live ? pairs[s + (lane >> 2)] : -1;
+    const uint4* tab = reinterpret_cast<const uint4*>(
+        p.tables + static_cast<size_t>(pb < 0 ? 0 : pb) * (32 * CB));
+#pragma unroll
+    for (int q = 0; q < CB / 2; ++q) {
+      uint32_t w[4][4];  // tables 4q..4q+3, their 16 entries as 4 words
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 v = pb >= 0 ? __ldg(tab + 4 * q + i) : make_uint4(0u, 0u, 0u, 0u);
+        w[i][0] = v.x; w[i][1] = v.y; w[i][2] = v.z; w[i][3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)  // word u: entries 4u..4u+3 (h = u / 2, b0 / b1 by u & 1)
+        bt[j][2 * q + u / 2][u & 1] = __byte_perm(__byte_perm(w[0][u], w[1][u], pick),
+                                                  __byte_perm(w[2][u], w[3][u], pick), 0x5410);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) pid[j][e] = s + 2 * t + e < c.live ? pairs[s + 2 * t + e] : -1;
+  }
+}
+
+// x[r] (r = the oct's row) to the minimum over the eight lanes of a column
+// group, row gl = lane >> 2's in the lane: three exchanges of halving width
+// (7 shuffles for 8 rows), min per 16-bit lane.
+__device__ __forceinline__ uint32_t reduce_rows(uint32_t (&x)[kOct], int gl) {
+  const bool u4 = gl & 4, u2 = gl & 2, u1 = gl & 1;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t send = u4 ? x[k] : x[k + 4];
+    const uint32_t keep = u4 ? x[k + 4] : x[k];
+    x[k] = __vmins2(keep, __shfl_xor_sync(0xFFFFFFFFu, send, 16));
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t send = u2 ? x[k] : x[k + 2];
+    const uint32_t keep = u2 ? x[k + 2] : x[k];
+    x[k] = __vmins2(keep, __shfl_xor_sync(0xFFFFFFFFu, send, 8));
+  }
+  const uint32_t send = u1 ? x[0] : x[1];
+  const uint32_t keep = u1 ? x[1] : x[0];
+  return __vmins2(keep, __shfl_xor_sync(0xFFFFFFFFu, send, 4));
+}
+
+__device__ __forceinline__ uint32_t pack2(int lo, int hi) { return __byte_perm(lo, hi, 0x5410); }
+
+// PTX prmt.b32 in its default mode: byte i of the result is byte c[4i+2:4i]
+// of (b:a), or that byte's sign replicated where bit 4i+3 of c is set
+// (CUDA's __byte_perm does not replicate signs).
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// One oct of the cursor's group against NTC N tiles: the m-tiles (16 codes:
+// one storage row at CB = 8, two at CB = 16) kPar at a time, the row minima
+// per pair column in 16-bit lanes, reduced and stored one 32-byte sector per
+// (pair, oct). The A fragment of a k-step is four permutes of the codes'
+// nibbles (the head of this file). Four m-tiles at a time, or two sums an
+// m-tile taking the k-steps in turns, were no faster (H100 80GB HBM3).
+constexpr int kPar = 2;
+template <int CB, int NT, int NTC, bool kWhole>
+__device__ __forceinline__ void scan_oct(const uint32_t (&bt)[NT][CB][2], const int (&pid)[NT][2],
+                                         const uint4* stage, const OctCursor& c,
+                                         int32_t* __restrict__ out, int rpp) {
+  constexpr int kCpr = 128 / CB;
+  constexpr int kRowsPerTile = CB / 8;
+  constexpr int kMTiles = kOct / kRowsPerTile;
+  constexpr int kWords = CB / 4;  // words of one code
+  const int lane = threadIdx.x & 31;
+  const int gl = lane >> 2;
+  const uint32_t one = 1u << (8 * (lane & 3));  // byte t of the one-hot tables
+  const int row0 = c.o * kOct;
+  uint32_t x[NTC][kOct];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; mt += kPar) {
+    if (!kWhole && row0 + mt * kRowsPerTile >= c.rows) {  // no real code from here on
+#pragma unroll
+      for (int j = 0; j < NTC; ++j)
+#pragma unroll
+        for (int r = mt * kRowsPerTile; r < (mt + kPar) * kRowsPerTile; ++r) x[j][r] = kNonePair;
+      continue;
+    }
+    // u: the code of C row gl, d: of C row gl + 8 (CB 8: codes gl and gl + 8
+    // of the row; CB 16: code gl of the m-tile's first and second row).
+    uint32_t u[kPar][kWords], d[kPar][kWords];
+#pragma unroll
+    for (int mi = 0; mi < kPar; ++mi) {
+      const int mtile = mt + mi;
+      if constexpr (CB == 8) {
+        const uint2* row = reinterpret_cast<const uint2*>(stage) + mtile * 16;
+        const uint2 cu = row[gl], cd = row[8 + gl];
+        u[mi][0] = cu.x; u[mi][1] = cu.y; d[mi][0] = cd.x; d[mi][1] = cd.y;
+      } else {
+        const uint4 cu = stage[2 * mtile * 8 + gl], cd = stage[(2 * mtile + 1) * 8 + gl];
+        u[mi][0] = cu.x; u[mi][1] = cu.y; u[mi][2] = cu.z; u[mi][3] = cu.w;
+        d[mi][0] = cd.x; d[mi][1] = cd.y; d[mi][2] = cd.z; d[mi][3] = cd.w;
+      }
+    }
+    int acc[kPar][NTC][4];
+#pragma unroll
+    for (int mi = 0; mi < kPar; ++mi)
+#pragma unroll
+      for (int j = 0; j < NTC; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0;
+#pragma unroll
+    for (int wi = 0; wi < kWords; ++wi) {
+#pragma unroll
+      for (int qh = 0; qh < 4; ++qh) {  // k-step 2q + h, q = 2wi + qh / 2, h = qh % 2
+        const int kk = 4 * wi + qh;
+#pragma unroll
+        for (int mi = 0; mi < kPar; ++mi) {
+          // The selector: bytes 4wi, 4wi + 1 in the low 16 bits (q even) or
+          // 4wi + 2, + 3; bit 3 of every nibble flipped for the values 8..15.
+          uint32_t su = (qh & 1) ? u[mi][wi] ^ 0x88888888u : u[mi][wi];
+          uint32_t sd = (qh & 1) ? d[mi][wi] ^ 0x88888888u : d[mi][wi];
+          if (qh >= 2) {
+            su >>= 16;
+            sd >>= 16;
+          }
+          const uint32_t a[4] = {prmt(one, 0u, su), prmt(one, 0u, sd), prmt(0u, one, su),
+                                 prmt(0u, one, sd)};
+#pragma unroll
+          for (int j = 0; j < NTC; ++j)
+            mma_s8(acc[mi][j], a, bt[j][kk][0], bt[j][kk][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < kPar; ++mi) {
+      const int mtile = mt + mi;
+      const int real = c.size - (row0 + mtile * kRowsPerTile) * kCpr;  // of C row gl's row
+#pragma unroll
+      for (int j = 0; j < NTC; ++j) {
+        int lo0 = acc[mi][j][0], hi0 = acc[mi][j][1], lo1 = acc[mi][j][2], hi1 = acc[mi][j][3];
+        if constexpr (CB == 8) {  // C rows gl and gl + 8: codes gl and gl + 8 of one row
+          if (!kWhole && real < kCpr) {
+            if (gl >= real) lo0 = hi0 = kNone16;
+            if (gl + 8 >= real) lo1 = hi1 = kNone16;
+          }
+          x[j][mtile] = pack2(min(lo0, lo1), min(hi0, hi1));
+        } else {  // C rows gl and gl + 8: code gl of two rows
+          if (!kWhole && real < 2 * kCpr) {
+            if (gl >= real) lo0 = hi0 = kNone16;
+            if (gl >= real - kCpr) lo1 = hi1 = kNone16;
+          }
+          x[j][2 * mtile] = pack2(lo0, hi0);
+          x[j][2 * mtile + 1] = pack2(lo1, hi1);
+        }
+      }
+    }
+  }
+  const int row = row0 + gl;
+#pragma unroll
+  for (int j = 0; j < NTC; ++j) {
+    const uint32_t v = reduce_rows(x[j], gl);
+    if (row >= rpp) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int pr = pid[j][e];
+      const int m = e ? static_cast<int>(v) >> 16 : static_cast<int>(static_cast<int16_t>(v));
+      if (pr >= 0) out[static_cast<size_t>(pr) * rpp + row] = m == kNone16 ? kScanTrim : m;
+    }
+  }
+}
+
+// scan_oct with the chunk's tile count (NT, or 1 for a group's last chunk)
+// and whether every code of the oct is real as constants: no mma.sync under
+// a predicate, no masks in the octs before a group's last.
+template <int CB, int NT>
+__device__ __forceinline__ void scan_chunk(const uint32_t (&bt)[NT][CB][2],
+                                           const int (&pid)[NT][2], bool full_chunk,
+                                           const uint4* stage, const OctCursor& c,
+                                           int32_t* __restrict__ out, int rpp) {
+  const bool whole = (c.o + 1) * kOct * (128 / CB) <= c.size;
+  if (full_chunk && whole) scan_oct<CB, NT, NT, true>(bt, pid, stage, c, out, rpp);
+  else if (full_chunk) scan_oct<CB, NT, NT, false>(bt, pid, stage, c, out, rpp);
+  else if (whole) scan_oct<CB, NT, 1, true>(bt, pid, stage, c, out, rpp);
+  else scan_oct<CB, NT, 1, false>(bt, pid, stage, c, out, rpp);
+}
+
+// n int32 entries of kScanTrim from dst on, by one warp: 16-byte stores
+// between the aligned ends.
+__device__ __forceinline__ void fill_trim(int32_t* dst, int n) {
+  const int lane = threadIdx.x & 31;
+  if (n <= 0) return;
+  const int head = min(n, static_cast<int>((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
+  if (lane < head) dst[lane] = kScanTrim;
+  const int quads = (n - head) >> 2;
+  int4* body = reinterpret_cast<int4*>(dst + head);
+  for (int i = lane; i < quads; i += 32) body[i] = make_int4(kScanTrim, kScanTrim, kScanTrim, kScanTrim);
+  if (lane < ((n - head) & 3)) dst[head + 4 * quads + lane] = kScanTrim;
+}
+
+// The sentinel rows a warp writes: rows from the group's last real oct on,
+// for each live pair of its live groups g, g + W, ..; pair i of group g
+// from row pos on (first: the group's first such row).
+struct DeadRows {
+  int g, i, pos, live, first;
+};
+constexpr int kDeadSlice = 1024;  // entries a warp writes after each oct it scans
+
+template <int CB>
+__device__ __forceinline__ void next_dead_group(DeadRows& d, int warps, const GroupedArgs& p) {
+  for (; d.g < p.gcap; d.g += warps) {
+    d.live = p.live[d.g];
+    d.first = min(p.rpp, (real_rows(p.group_sizes[d.g], p.rpp, 128 / CB) + kOct - 1) / kOct * kOct);
+    if (d.live > 0 && d.first < p.rpp) {
+      d.i = 0;
+      d.pos = d.first;
+      return;
+    }
+  }
+}
+
+// Up to `budget` of the warp's sentinel entries, by 16-byte stores.
+template <int CB>
+__device__ __forceinline__ void dead_rows(DeadRows& d, int budget, int warps, const GroupedArgs& p) {
+  while (d.g < p.gcap && budget > 0) {
+    const int n = min(budget, p.rpp - d.pos);
+    const int pr = p.live_pairs[static_cast<size_t>(d.g) * p.group_size + d.i];
+    fill_trim(p.out + static_cast<size_t>(pr) * p.rpp + d.pos, n);
+    budget -= n;
+    d.pos += n;
+    if (d.pos == p.rpp) {
+      d.pos = d.first;
+      if (++d.i == d.live) {
+        d.g += warps;
+        next_dead_group<CB>(d, warps, p);
+      }
+    }
+  }
+}
+
+// M1: one wave of blocks; warp w of W walks the octs whose first cost unit
+// lies in [w, w + 1) * total / W of the groups' cost prefix, codes through
+// its own ring kGroupedStages - 1 octs ahead (cp.async, across groups), the
+// tables of a group's first NT tiles held in registers while the group lasts
+// (more tiles: reloaded an oct), and writes its sentinel rows (DeadRows)
+// kDeadSlice entries after each oct, the rest at the end.
+template <int CB, int NT>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+grouped_scan_mma_kernel(const GroupedArgs p) {
+  __shared__ GroupedRing rings[kMmaWarps];
+  constexpr int kCpr = 128 / CB;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = gridDim.x * kMmaWarps;
+  const int w = blockIdx.x * kMmaWarps + warp;
+
+  DeadRows dead{w, 0, 0, 0, 0};
+  next_dead_group<CB>(dead, warps, p);
+
+  const long long total = p.base[p.gcap];
+  const long long end = total * (w + 1) / warps;
+  OctCursor fc;
+  bool fetching = enter<CB, NT>(fc, total * w / warps, end, p);
+  OctCursor cc = fc;
+  bool scanning = fetching;
+  GroupedRing& ring = rings[warp];
+  int fstep = 0;
+  // Copies the fetch cursor's oct into its stage and moves the cursor on;
+  // one cp.async group a call, empty past the warp's last oct.
+  auto fetch = [&]() {
+    if (fetching) {
+      const uint4* from = reinterpret_cast<const uint4*>(fc.part) + static_cast<size_t>(fc.o) * 64 + lane;
+      uint4* to = &ring[fstep % kGroupedStages][lane];
+      const int row = fc.o * kOct + (lane >> 3);
+      if (row < fc.rows) cp_async16(to, from);
+      if (row + 4 < fc.rows) cp_async16(to + 32, from + 32);
+      fetching = next_oct<CB, NT>(fc, end, p);
+    }
+    cp_async_commit();
+    ++fstep;
+  };
+#pragma unroll
+  for (int k = 0; k < kGroupedStages - 1; ++k) fetch();
+
+  uint32_t bt[NT][CB][2];
+  int pid[NT][2];
+  int tiles = 0, chunks = 0, held = -1;
+  for (int step = 0; scanning; ++step) {
+    if (cc.g != held) {
+      held = cc.g;
+      tiles = (cc.live + 7) / 8;
+      chunks = (tiles + NT - 1) / NT;
+      if (chunks == 1) load_tiles<CB, NT>(bt, pid, p, cc, 0);
+    }
+    __syncwarp();  // the stage fetched next was read in the step before
+    fetch();
+    cp_async_wait<kGroupedStages - 1>();
+    __syncwarp();  // every lane's copy of this oct has landed
+    const uint4* stage = ring[step % kGroupedStages];
+    for (int ch = 0; ch < chunks; ++ch) {
+      if (chunks > 1) load_tiles<CB, NT>(bt, pid, p, cc, ch);
+      scan_chunk<CB, NT>(bt, pid, tiles - ch * NT >= NT, stage, cc, p.out, p.rpp);
+    }
+    scanning = next_oct<CB, NT>(cc, end, p);
+    if (dead.g < p.gcap) dead_rows<CB>(dead, kDeadSlice, warps, p);
+  }
+  cp_async_wait<0>();
+  dead_rows<CB>(dead, INT_MAX, warps, p);
+}
+
+template <int CB, int NT>
+cudaError_t launch_grouped(const GroupedArgs& args, const void* slot_pair, void* live_pairs,
+                           void* live, void* base, cudaStream_t stream) {
+  static_assert(NT == 1 || NT == 2, "scan_oct takes a chunk of 1 or NT tiles");
+  auto kernel = grouped_scan_mma_kernel<CB, NT>;
+  static int resident = 0;  // asked once for each instantiation
+  if (resident == 0) {
+    int blocks = 1;
+    const cudaError_t err = resident_blocks(kernel, &blocks);
+    if (err != cudaSuccess) return err;
+    resident = blocks;
+  }
+  grouped_scan_mma_kernel_plan<CB, NT>
+      <<<(args.gcap + kMmaWarps - 1) / kMmaWarps, kMmaThreads, 0, stream>>>(
+          static_cast<const int32_t*>(slot_pair), args.group_sizes,
+          static_cast<int32_t*>(live_pairs), static_cast<int32_t*>(live),
+          static_cast<long long*>(base), args.gcap, args.group_size, args.rpp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  grouped_scan_mma_kernel_prefix<<<1, kPrefixThreads, 0, stream>>>(static_cast<long long*>(base),
+                                                                   args.gcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kernel<<<resident, kMmaThreads, 0, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -155,18 +645,26 @@ extern "C" int qadc_flat_scan_mma(const void* codes, const void* tables, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// int8 tables, int32 out (QA, rpp).
+// int8 tables, int32 out (QA, rpp); live_pairs (gcap, G) int32, live (gcap,)
+// int32 and base (gcap + 2,) int64 are the plan's scratch (base[gcap + 1]:
+// the real rows walked); tiles: the N tiles of 8 pairs a warp holds in
+// registers (1, or 2 at cb 8).
 extern "C" int qadc_grouped_scan_mma(const void* codes, const void* tables,
                                      const void* group_part, const void* slot_pair,
-                                     const void* group_sizes, void* out, int gcap,
-                                     int group_size, int rpp, int cb, void* stream) {
+                                     const void* group_sizes, void* out, void* live_pairs,
+                                     void* live, void* base, int gcap, int group_size, int rpp,
+                                     int cb, int tiles, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (group_size < 1 || gcap < 1 || rpp < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (cb == 8)
-    return launch_grouped<8, 2>(codes, tables, group_part, slot_pair, group_sizes, out, gcap,
-                                group_size, rpp, s);
-  if (cb == 16)
-    return launch_grouped<16, 1>(codes, tables, group_part, slot_pair, group_sizes, out, gcap,
-                                 group_size, rpp, s);
+  const GroupedArgs args{static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(tables),
+                         static_cast<const int32_t*>(group_part),
+                         static_cast<const int32_t*>(group_sizes),
+                         static_cast<const int32_t*>(live_pairs),
+                         static_cast<const int32_t*>(live), static_cast<const long long*>(base),
+                         static_cast<int32_t*>(out), rpp, group_size, gcap};
+  if (cb == 8 && tiles == 1) return launch_grouped<8, 1>(args, slot_pair, live_pairs, live, base, s);
+  if (cb == 8 && tiles == 2) return launch_grouped<8, 2>(args, slot_pair, live_pairs, live, base, s);
+  if (cb == 16 && tiles == 1)
+    return launch_grouped<16, 1>(args, slot_pair, live_pairs, live, base, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

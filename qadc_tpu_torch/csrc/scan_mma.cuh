@@ -1,5 +1,7 @@
-// The 4-bit int8 scan as a tensor-core product, shared by the flat and the
-// grouped Quick ADC scans (scan_mma.cu) and by the scan lab (scan_lab.cu).
+// The 4-bit int8 scan as a tensor-core product: the flat Quick ADC scan's
+// (scan_mma.cu) and the scan lab's (scan_lab.cu). M1 (scan_mma.cu) takes
+// its primitives (mma_s8, cp.async, resident_blocks) and turns the product
+// around: codes on M, pairs on N.
 //
 // The scan is  min over a storage row of  (tables x one-hot(codes)):  a
 // query's 2*CB tables of 16 int8 entries are one row of 32*CB bytes, a code

@@ -77,6 +77,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from qadc_tpu_torch.core.layout import code_view
+from qadc_tpu_torch.eval.trace import count, recording_open
 from qadc_tpu_torch.ops.topk import exact_tile_screen
 
 # Finite sentinel for codes past a partition's size (lut_scan.py:MASK_BIG):
@@ -275,9 +276,16 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
       nibble_m], summed over b = 0..cb-1, low nibble then high (no 127
       saturation); TRIM_SENTINEL (int32) or +inf (float32) for rows at or
       past ceil(size / cpr).
+
+    With int8 tables, in a recording, it counts `scan.rows`: the real
+    storage rows the scan walks (grouped_scan_rows summed; on a card the
+    kernels' own sum, a 0-d device tensor read when the recording closes).
     """
     f32 = _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=True)
     if codes.device.type == "cpu":
+        if not f32 and recording_open():
+            count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, codes.shape[1],
+                                                 256 // tables.shape[1]).sum())
         return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
     return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
                                 "grouped_scan_f32" if f32 else "grouped_scan")
@@ -332,13 +340,89 @@ def _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, kern
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, out)]
         if kernel == "grouped_scan":
-            _launch("qadc_grouped_scan_mma", dev, *ptrs, gcap, g, rpp, m // 2)
+            # The plan's scratch (csrc/scan_mma.cu): packed live pairs, their
+            # counts, the prefix of the groups' costs.
+            plan = (torch.empty((gcap, g), dtype=torch.int32, device=dev),
+                    torch.empty((gcap,), dtype=torch.int32, device=dev),
+                    torch.empty((gcap + 2,), dtype=torch.int64, device=dev))
+            _launch("qadc_grouped_scan_mma", dev, *ptrs, *(t.data_ptr() for t in plan),
+                    gcap, g, rpp, m // 2, grouped_mma_tiles(m // 2, qa, codes.shape[0]))
+            count("scan.rows", plan[2][gcap + 1])
         elif kernel == "grouped_scan_f32":
             _launch("qadc_grouped_scan_sm", dev, *ptrs, gcap, g, rpp, m // 2)
         else:
             _launch("qadc_grouped_scan", dev, *ptrs, gcap, g, rpp, m // 2, int(f32))
         launches[kernel] += 1
     return out
+
+
+# M1's work split with int8 tables (csrc/scan_mma.cu): a group's cost an oct
+# of eight storage rows is GROUPED_MMA_ONEHOT_COST a chunk of the N tiles a
+# warp holds (grouped_mma_tiles; a one-hot build) plus one a tile of 8 live
+# pairs; warp w of W walks the octs whose first cost unit lies in
+# [w, w + 1) * total / W of the groups' cost prefix.
+GROUPED_MMA_OCT = 8
+GROUPED_MMA_ONEHOT_COST = 4
+
+
+def grouped_mma_tiles(cb: int, qa: int, parts: int) -> int:
+    """N tiles of 8 pairs M1's warps hold in registers, from the batch's
+    shape: 2 at cb 8 where a probed partition takes more than 8 pairs on
+    average (qa > 8 * parts), else 1 (the registers buy occupancy)."""
+    return 2 if cb == 8 and qa > 8 * parts else 1
+
+
+def grouped_scan_rows(slot_pair, group_sizes, rpp: int, cpr: int) -> torch.Tensor:
+    """(gcap,) int32 real storage rows M1 walks in each group: ceil(size /
+    cpr), at most rpp, for a group with a live slot; 0 otherwise."""
+    rows = torch.clamp((group_sizes.long() + cpr - 1) // cpr, 0, rpp)
+    return torch.where((slot_pair >= 0).any(dim=1), rows, 0).to(torch.int32)
+
+
+def grouped_scan_mma_plan(slot_pair, group_sizes, rpp: int, cb: int, held: int):
+    """Plain version of M1's plan and prefix kernels, whose warps hold `held`
+    N tiles (grouped_mma_tiles): (live_pairs (gcap, G) int32, each group's
+    live pairs packed to the front in slot order, -1 after; live (gcap,)
+    int32 their counts; base (gcap + 2,) int64 the prefix of the groups'
+    costs, then the real rows walked)."""
+    gcap, g = slot_pair.shape
+    is_live = slot_pair >= 0
+    live = is_live.sum(dim=1).to(torch.int32)
+    order = torch.argsort((~is_live).to(torch.int8), dim=1, stable=True)
+    packed = torch.gather(slot_pair, 1, order)
+    octs = (grouped_scan_rows(slot_pair, group_sizes, rpp, 128 // cb).long()
+            + GROUPED_MMA_OCT - 1) // GROUPED_MMA_OCT
+    tiles = (live.long() + 7) // 8
+    chunks = (tiles + held - 1) // held
+    cost = octs * (chunks * GROUPED_MMA_ONEHOT_COST + tiles)
+    base = torch.zeros(gcap + 2, dtype=torch.int64, device=slot_pair.device)
+    base[1:-1] = torch.cumsum(cost, 0)
+    base[-1] = grouped_scan_rows(slot_pair, group_sizes, rpp, 128 // cb).sum()
+    return packed, live, base
+
+
+def grouped_scan_mma_walk(slot_pair, group_sizes, rpp: int, cb: int, held: int, warps: int):
+    """The (group, oct) pairs each of `warps` warps of M1's scan walks, in
+    order, and the (group, first row) of each live group's sentinel rows
+    (rows first..rpp-1 of its live pairs): the kernel's walk in Python."""
+    _, live, base = grouped_scan_mma_plan(slot_pair, group_sizes, rpp, cb, held)
+    rows = grouped_scan_rows(slot_pair, group_sizes, rpp, 128 // cb).tolist()
+    base, live = base[:-1].tolist(), live.tolist()
+    gcap, total = len(live), base[-1]
+    walks = []
+    for w in range(warps):
+        x, end, walk = total * w // warps, total * (w + 1) // warps, []
+        while x < end:
+            grp = max(i for i in range(gcap) if base[i] <= x)
+            cost = (base[grp + 1] - base[grp]) // -(-rows[grp] // GROUPED_MMA_OCT)
+            first = -(-(x - base[grp]) // cost)
+            last = min(-(-rows[grp] // GROUPED_MMA_OCT), -(-(end - base[grp]) // cost))
+            walk += [(grp, o) for o in range(first, last)]
+            x = base[grp + 1]
+        walks.append(walk)
+    dead = [(grp, min(rpp, -(-rows[grp] // GROUPED_MMA_OCT) * GROUPED_MMA_OCT))
+            for grp in range(gcap) if live[grp]]
+    return walks, dead
 
 
 def grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes):

@@ -46,7 +46,7 @@ ENGINE = {"engine.batch", "engine.copy_in", "search", "engine.copy_out"}
 FRONT = {"front.rotate", "front.tables", "front.keep_bound", "front.int8"}
 IVF_SPANS = ENGINE | FRONT | {"front.assign", "route", "scan", "screen", "rerank"}
 FLAT_SPANS = ENGINE | FRONT | {"scan", "screen", "rerank"}
-IVF_COUNTS = {"route.groups"}
+IVF_COUNTS = {"route.groups", "scan.rows"}
 FLAT_COUNTS = set()
 
 
@@ -180,8 +180,25 @@ def test_a_batch_records_the_named_spans(indexes, name, want_spans, want_counts,
     assert all(c.batch == rec.spans[0].batch for c in rec.counts)
     (search,) = [s for s in rec.spans if s.name == "search"]
     assert search.attrs == {"path": path}
-    for c in rec.counts:                                   # route.groups
-        assert 1 <= c.value <= B * MA
+    got = {c.name: c.value for c in rec.counts}
+    if name == "ivf":
+        assert 1 <= got["route.groups"] <= B * MA
+        assert 1 <= got["scan.rows"] <= got["route.groups"] * built[name].codes.shape[1]
+
+
+def test_scan_rows_counts_the_real_rows_of_the_probed_lists(indexes):
+    """scan.rows: ceil(size / cpr) of each probed partition (one group each at
+    B * MA pairs of G = 128), summed; route.groups their number."""
+    built, queries = indexes
+    index = built["ivf"]
+    q = torch.from_numpy(queries)
+    parts, _ = ivf.assign_queries(index, q, MA)
+    probed = torch.unique(parts.long())
+    want = int(((index.part_sizes[probed] + index.cpr - 1) // index.cpr).sum())
+    with recording() as rec:
+        ivf.search_qadc(index, q, r=R, ma=MA, keep=KEEP)
+    got = {c.name: c.value for c in rec.counts}
+    assert got == {"route.groups": probed.numel(), "scan.rows": want}
 
 
 def test_flat_ranges_record_a_scan_each_and_their_merge(indexes):
