@@ -16,31 +16,28 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
 
   1. kernel phases: each kernel against its plain PyTorch version on the
      card, at the shapes the search gives it (M1 at b=32's and b=128's
-     routed groups, by the tensor-core kernel and by the lookup kernel;
-     M2 by its staged kernel and by the arm it replaced (rows_adc_cached),
-     equal bit for bit, at the id lists that IVF qadc b=128 and b=32, flat
-     qadc b=128 and adc4 b=32 hand it (each launch's keep-prefix and rerank
-     lists, recorded through a Kernels whose rows_adc keeps its arguments)
-     and at random rerank ids; M3 by its chunked kernel and by the arm it
-     replaced (direct_scan_blocks), equal bit for bit, at the pairs direct
-     searches hand it (b=1, and b=32 and 128 forced direct; after phase 7
-     the same on the CLI's trained index, part_pad 12,288), and at fixed
-     rounds a block 1 / 2 / 4 in turns (the M3 rounds sweep); M1
-     with float tables and grouped_scan8 on the 16x4 and 8x8 indexes, by
-     their slot-minor kernels and by the kernels they replaced (the _lookup
-     arms, timed beside them), at search_adc's routed groups of 32 and 128
-     queries and at a hot partition (128 near-duplicate queries: whole
-     groups of 128 live slots), held with torch.equal to each other and to
-     their walk in PyTorch (the _slot_minor_plain versions); flat_scan with
-     int8 tables, with and without
-     argmin rows, by the warpgroup kernel at b=128, the mma.sync kernel at
-     b=32 and the lookup kernel at both, and with float tables over the 1M
-     flat 16x4 codes at b=128, and flat_scan8 over the flat 8x8 codes at b=32:
-     both by their query-minor kernels, held with torch.equal to the kernels
-     they replaced (flat_scan_f32_lookup, flat_scan8_lookup, timed beside
-     them) and to their own walk in PyTorch (the _query_minor_plain versions)).
-     The tensor-core kernels are also held to scan_onehot_plain, their own
-     arithmetic in PyTorch, exactly;
+     routed groups and at Deep100M's, by the tensor-core kernel; M2 by its
+     staged kernel, equal bit for bit to its staged walk, at the id lists
+     that IVF qadc b=128 and b=32, flat qadc b=128 and adc4 b=32 hand it
+     (each launch's keep-prefix and rerank lists, recorded through a Kernels
+     whose rows_adc keeps its arguments) and at random rerank ids; M3 by its
+     chunked kernel, equal bit for bit, at the pairs direct searches hand it
+     (b=1, and b=32 and 128 forced direct; after phase 7 the same on the
+     CLI's trained index, part_pad 12,288), and at fixed rounds a block 1 /
+     2 / 4 in turns (the M3 rounds sweep); M1 with float tables and
+     grouped_scan8 on the 16x4 and 8x8 indexes, by their slot-minor kernels,
+     at search_adc's routed groups of 32 and 128 queries and at a hot
+     partition (128 near-duplicate queries: whole groups of 128 live
+     slots), held with torch.equal to their walk in PyTorch (the
+     _slot_minor_plain versions); flat_scan with int8 tables, with and
+     without argmin rows, by the warpgroup kernel at b=128 and the mma.sync
+     kernel at b=32, and with float tables over the 1M flat 16x4 codes at
+     b=128, and flat_scan8 over the flat 8x8 codes at b=32: both by their
+     query-minor kernels, held with torch.equal to the lookup kernels forced
+     at that batch (flat_scan_f32_lookup, flat_scan8_lookup, timed beside
+     them) and to their own walk in PyTorch (the _query_minor_plain
+     versions)). The tensor-core kernels are also held to scan_onehot_plain,
+     their own arithmetic in PyTorch, exactly;
   2. search phases, each with the launch counts reset just before and read
      just after, and every kernel of its path required to have launched:
      ivf.search_qadc at b=1 (direct path), b=32 and b=128 (grouped path),
@@ -66,28 +63,26 @@ padded to 1,000,448, dim 128: 16x4, 8x8 and 8x16 PQ), and then:
      8x8 search_adc ma=24, IVF 16x4 search_qadc ma=24 with and without
      rerank, each held to a floor (the JAX package's record less 0.035);
   5. the window scans over the trained flat 16x4 codes at b=128:
-     flat_scan_window with int8 tables (the warpgroup kernel) and the
-     lookup kernel it replaced (flat_scan_window_lookup), in turns, held to
-     each other, to the plain version and to their tile walk bit for bit,
-     and to flat_scan at W = cpr, at (block 1024, W 16) min-only,
-     transposed and with argmin ids (also at b=32: a partial group of
-     queries), and at (block 512, W 8); with float tables the query-minor
-     kernel and the lookup kernel it replaced (flat_scan_window_f32_lookup)
-     in turns at (1024, 16), (512, 8) and 32x4 (1024, 16), b=128, and at
-     b=16 (below lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES: the lookup
-     kernel), held to each other, to the plain version and to the query-minor walk bit for
+     flat_scan_window with int8 tables (the warpgroup kernel), held to the
+     plain version and to its tile walk bit for bit, and to flat_scan at
+     W = cpr, at (block 1024, W 16) min-only, transposed and with argmin ids
+     (also at b=32: a partial group of queries), and at (block 512, W 8);
+     with float tables the query-minor kernel and the lookup kernel forced
+     at that batch (flat_scan_window_f32_lookup) in turns at (1024, 16),
+     (512, 8) and 32x4 (1024, 16), b=128, and at b=16 (below
+     lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES: the lookup kernel), held to
+     each other, to the plain version and to the query-minor walk bit for
      bit (minima, transposed minima, ids) and to float flat_scan with rows
-     at W = cpr; kernel 10, flat_scan_window_regs (four lookups a byte
-     permute) and the kernel it replaced (flat_scan_window_regs_single) at
+     at W = cpr, their device times side by side (the `window A/B` line);
+     kernel 10, flat_scan_window_regs (four lookups a byte permute) at
      those shapes and at 32x4 (block 8, W 2: 4 windows a block), held to
-     flat_scan_window and each other bit for bit, with the instructions a
-     lookup of each compiled loop (cuobjdump) and the ceilings, a model,
-     that they set (the `window ceilings` line);
-     lut_scan_topk_int8 r=100 against the exact scan and the screen of the
-     arm's windows; the same over a 32x4 index (W 16 != cpr 8), and the
-     scans' device times side by side (the `window A/B` line);
+     flat_scan_window bit for bit, with the instructions a lookup of each
+     compiled loop (cuobjdump) and the ceilings, a model, that they set
+     (the `window ceilings` line); lut_scan_topk_int8 r=100 against the
+     exact scan and the screen of the plain version's windows; the same
+     over a 32x4 index (W 16 != cpr 8);
   6. the scan lab (qadc_tpu_torch/kernels/scan_lab.py) over the same trained
-     codes at b=128: the six engines of one scan equal bit for bit, every
+     codes at b=128: the three engines of one scan equal bit for bit, every
      lab mode launched and timed, the exactness probe (0 mismatches
      required) and the float32 selector sum against float64 (1e-6); the
      query-minor scans at every chunk of queries and with parts removed, and
@@ -173,15 +168,18 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+from portbench.peaks import PEAK_BYTES, PEAK_INT8
+
 R, MA, KEEP = 100, 24, 0.005
 BATCHES = (1, 32, 128)
 ADC_BATCH = 32           # search_adc's phases (bench.py's adc4_b32 / adc8_b32)
 # Timed runs per measurement: 100 leave ten samples beyond the p90. A plain
-# version (tens of ms at the flat shapes) is timed over PLAIN_REPS runs, an A/B
-# arm of a replaced flat kernel over ARM_REPS.
-REPS, PLAIN_REPS, ARM_REPS, WARMUP = 100, 10, 30, 3
-# Published peaks of one H100 SXM: HBM bytes/s, int8 and float32 operations/s.
-PEAK_BYTES, PEAK_INT8, PEAK_F32 = 3.35e12, 1979e12, 67e12
+# version (tens of ms at the flat shapes) is timed over PLAIN_REPS runs, a
+# kernel that no search launches at that shape over LAB_REPS.
+REPS, PLAIN_REPS, LAB_REPS, WARMUP = 100, 10, 30, 3
+# Published float32 peak of one H100 SXM (HBM bytes/s and int8 operations/s:
+# portbench/peaks.py).
+PEAK_F32 = 67e12
 # M2/M3 float sums: rtol 1e-6, atol 1e-5 * max|plain| (same sum order, but
 # the compiler may round differently); M1 int32: exact.
 RTOL, ATOL_REL = 1e-6, 1e-5
@@ -236,27 +234,20 @@ PATH_KERNELS = {
     "gist_ivf_qadc_b1": ("direct_scan",),
     "sixteen_flat": (),      # 16-bit: decode and a float32 GEMM
     "sixteen_ivf": (),
-    "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_lookup",
-                 "flat_scan_window", "flat_scan_window_lookup", "flat_scan_window_regs",
-                 "flat_scan_window_regs_single", "flat_scan_f32_lookup",
-                 "flat_scan8_lookup", "empty_kernel"),
+    "scan_lab": ("scan_lab", "selector_sum", "flat_scan", "flat_scan_window",
+                 "flat_scan_window_regs", "flat_scan_f32_lookup", "flat_scan8_lookup",
+                 "empty_kernel"),
 }
-# The replaced kernels are A/B instruments: no search path may launch them.
-LOOKUP_ONLY = ("grouped_scan_lookup", "grouped_scan_f32_lookup", "grouped_scan8_lookup",
-               "flat_scan_lookup", "flat_scan_f32_lookup", "flat_scan8_lookup", "rows_adc_cached",
-               "direct_scan_blocks", "flat_scan_window_lookup", "flat_scan_window_f32_lookup",
-               "flat_scan_window_regs_single")
+# The entries that force a lookup kernel past its query-count threshold
+# measure that threshold: no search path may launch them.
+LOOKUP_ONLY = ("flat_scan_f32_lookup", "flat_scan8_lookup", "flat_scan_window_f32_lookup")
 # The path whose run gives a kernel phase its launch count (default: qadc).
 PATH_OF = {"grouped_scan_f32": "adc4", "grouped_scan8": "adc8", "flat_scan": "flat_qadc",
-           "grouped_scan_f32_lookup": "adc4", "grouped_scan8_lookup": "adc8",
            "flat_scan_f32": "flat_adc4", "flat_scan8": "flat_adc8",
            "flat_scan_window": "window_scan", "flat_scan_window_regs": "window_scan",
-           "flat_scan_window_f32": "window_scan", "flat_scan_window_lookup": "window_scan",
-           "flat_scan_window_f32_lookup": "window_scan",
-           "flat_scan_window_regs_single": "window_scan",
-           "flat_scan_lookup": "flat_qadc", "flat_scan_f32_lookup": "flat_adc4",
-           "flat_scan8_lookup": "flat_adc8", "scan_lab": "scan_lab", "selector_sum": "scan_lab",
-           "empty_kernel": "scan_lab"}
+           "flat_scan_window_f32": "window_scan", "flat_scan_window_f32_lookup": "window_scan",
+           "flat_scan_f32_lookup": "flat_adc4", "flat_scan8_lookup": "flat_adc8",
+           "scan_lab": "scan_lab", "selector_sum": "scan_lab", "empty_kernel": "scan_lab"}
 # The trained phase (bench.py:_bench_recall_parity): sizes, the keep of the
 # reference's -k 0.213 (% of N; per partition here), and the recall floors:
 # the JAX package's 1M record (0.9063 / 0.9844 / 0.9141) less 0.035 for 128
@@ -551,7 +542,7 @@ def main() -> int:
         return 0.0
 
     # M1 at the routed groups of b=128 (the name the main path counts) and
-    # b=32, by the tensor-core kernel and by the lookup kernel it replaced.
+    # b=32.
     q32 = queries[32]
     parts32, _, qtables32, _ = ivf._quantized_tables(index, q32, R, MA, KEEP, prefix_pad,
                                                      lut_scan.DISPATCH)
@@ -561,16 +552,11 @@ def main() -> int:
     for tag, args, probes in (("", m1_args, parts), ("[b=32]", m1_args32, parts32)):
         check(torch.equal(lut_scan.grouped_scan(*args), lut_scan.grouped_scan_onehot_plain(*args)),
               f"grouped_scan{tag} differs from its one-hot plain version")
-        for name, fn, cu_name, src in (
-            ("grouped_scan", lut_scan.grouped_scan, "grouped_scan_mma_kernel", "scan_mma.cu"),
-            ("grouped_scan_lookup", lut_scan.grouped_scan_lookup, "grouped_scan_kernel",
-             "grouped_scan.cu"),
-        ):
-            kernel_phase(name + tag, cu_name, f"qadc_tpu_torch/csrc/{src}",
-                         "qadc_tpu/kernels/lut_scan.py:857",
-                         lambda fn=fn, args=args: fn(*args),
-                         lambda args=args: lut_scan.grouped_scan_plain(*args), exact_int,
-                         *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
+        kernel_phase("grouped_scan" + tag, "grouped_scan_mma_kernel",
+                     "qadc_tpu_torch/csrc/scan_mma.cu", "qadc_tpu/kernels/lut_scan.py:857",
+                     lambda args=args: lut_scan.grouped_scan(*args),
+                     lambda args=args: lut_scan.grouped_scan_plain(*args), exact_int,
+                     *grouped_work(index, probes, args[1], args[2:]), PEAK_INT8)
 
     # M1 at Deep100M's geometry (the benchmark's deep100m-ivf-b512 cell):
     # b=512 x ma=24 probes of 4096 lists, G=128, list sizes drawn (gamma,
@@ -603,24 +589,17 @@ def main() -> int:
           f"mean list {float(deep_sizes.float().mean()):.0f}, {probed.numel()} lists probed, "
           f"{deep_real / 1e9:.3f} GB of real codes, {deep_routed.gcap} groups "
           f"({int(deep_routed.n_groups)} live)", flush=True)
-    check(torch.equal(lut_scan.grouped_scan(*deep_args), lut_scan.grouped_scan_lookup(*deep_args)),
-          "grouped_scan[deep] differs from the lookup kernel")
-    for name, fn, cu_name, src in (
-        ("grouped_scan", lut_scan.grouped_scan, "grouped_scan_mma_kernel", "scan_mma.cu"),
-        ("grouped_scan_lookup", lut_scan.grouped_scan_lookup, "grouped_scan_kernel",
-         "grouped_scan.cu"),
-    ):
-        kernel_phase(f"{name}[deep b=512]", cu_name, f"qadc_tpu_torch/csrc/{src}",
-                     "qadc_tpu/kernels/lut_scan.py:857", lambda fn=fn: fn(*deep_args),
-                     lambda: lut_scan.grouped_scan_plain(*deep_args), exact_int,
-                     deep_real + nbytes(*deep_args[1:]),
-                     int(deep_sizes[deep_probes.long()].sum()) * 16, PEAK_INT8)
+    kernel_phase("grouped_scan[deep b=512]", "grouped_scan_mma_kernel",
+                 "qadc_tpu_torch/csrc/scan_mma.cu", "qadc_tpu/kernels/lut_scan.py:857",
+                 lambda: lut_scan.grouped_scan(*deep_args),
+                 lambda: lut_scan.grouped_scan_plain(*deep_args), exact_int,
+                 deep_real + nbytes(*deep_args[1:]),
+                 int(deep_sizes[deep_probes.long()].sum()) * 16, PEAK_INT8)
     del deep_codes, deep_args
     torch.cuda.empty_cache()
 
     # M3 at the pairs the direct path hands it (a Kernels whose direct_scan
-    # keeps its arguments): b=1, and b=32 and 128 forced direct, by the
-    # chunked kernel and by the arm it replaced (direct_scan_blocks) in turns.
+    # keeps its arguments): b=1, and b=32 and 128 forced direct.
     def recorded_m3(ix, qs):
         calls = []
 
@@ -645,14 +624,9 @@ def main() -> int:
     m3_src = "qadc_tpu_torch/csrc/rows_adc.cu"
 
     def m3_phases(ix, tag, m3_args, path):
-        """M3 at one shape: the chunked kernel equal to the arm bit for bit,
-        then both timed beside the plain version and the bound (each probed
-        partition's codes read once, tables, ids and sizes; distances and
-        minima written once)."""
-        got, arm = lut_scan.direct_scan(*m3_args), lut_scan.direct_scan_blocks(*m3_args)
-        check(torch.equal(got[0], arm[0]) and torch.equal(got[1], arm[1]),
-              f"direct_scan[{tag}] differs from its arm")
-        del got
+        """M3 at one shape: the kernel timed beside the plain version and the
+        bound (each probed partition's codes read once, tables, ids and sizes;
+        distances and minima written once), then at fixed rounds a block."""
         pp = m3_args[1]
         moved = torch.unique(pp).numel() * ix.codes.shape[1] * 128 + nbytes(*m3_args[1:])
         rounds = lut_scan.direct_scan_rounds(pp.shape[0], ix.part_pad,
@@ -660,29 +634,28 @@ def main() -> int:
                                              .multi_processor_count)
         print(f"direct_scan [{tag}]: {pp.shape[0]} pairs x part_pad {ix.part_pad}, "
               f"{torch.unique(pp).numel()} partitions, {rounds} rounds a block", flush=True)
-        for base, fn, cu_name in (("direct_scan", lut_scan.direct_scan, "direct_scan_kernel"),
-                                  ("direct_scan_blocks", lut_scan.direct_scan_blocks,
-                                   "direct_scan_blocks_kernel")):
-            kernel_phase(base if tag == "b=1" else f"{base}[{tag}]", cu_name, m3_src,
-                         "qadc_tpu/kernels/lut_scan.py:1206",
-                         lambda fn=fn: fn(*m3_args),
-                         lambda: lut_scan.direct_scan_plain(*m3_args), direct_exact,
-                         moved, int(m3_args[4].sum()) * ix.pq.sq_count, PEAK_F32, path=path)
+        kernel_phase("direct_scan" if tag == "b=1" else f"direct_scan[{tag}]",
+                     "direct_scan_kernel", m3_src, "qadc_tpu/kernels/lut_scan.py:1206",
+                     lambda: lut_scan.direct_scan(*m3_args),
+                     lambda: lut_scan.direct_scan_plain(*m3_args), direct_exact,
+                     moved, int(m3_args[4].sum()) * ix.pq.sq_count, PEAK_F32, path=path)
         # The rounds a block fixed at each of M3_ROUNDS in turns, twice (the
-        # readings behind lut_scan.direct_scan_rounds), each equal to the arm.
+        # readings behind lut_scan.direct_scan_rounds), each equal to the plain
+        # version.
+        want = lut_scan.direct_scan_plain(*m3_args)
         rule, sweep = lut_scan.direct_scan_rounds, {r: [] for r in M3_ROUNDS}
         try:
             for _ in range(2):
                 for r in M3_ROUNDS:
                     lut_scan.direct_scan_rounds = lambda qa, part_pad, sms, r=r: r
                     got = lut_scan.direct_scan(*m3_args)
-                    check(torch.equal(got[0], arm[0]) and torch.equal(got[1], arm[1]),
-                          f"direct_scan[{tag}] at {r} rounds differs from its arm")
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"direct_scan[{tag}] at {r} rounds differs from its plain version")
                     sweep[r].append(device_ms(torch, lambda: lut_scan.direct_scan(*m3_args),
                                               "direct_scan_kernel"))
         finally:
             lut_scan.direct_scan_rounds = rule
-        del got, arm
+        del got, want
         m3_rounds[tag] = {"rule": rounds, **sweep}
         print(f"direct_scan [{tag}] device ms at fixed rounds, two turns: " + "; ".join(
             f"{r}: {v[0]:.5f} / {v[1]:.5f}" for r, v in sweep.items())
@@ -707,11 +680,10 @@ def main() -> int:
         rt = route_queries(p, ix.part_count, 128)
         return p, t, (rt.group_part, rt.slot_pairs(), ivf._group_sizes(ix, rt))
 
-    # The slot-minor kernels (grouped_scan_f32, grouped_scan8) and the kernels
-    # they replaced (the _lookup arms) at three routings: search_adc's b=32
-    # groups (~3 live slots), b=128's (~12), and a hot partition: 128
-    # near-duplicate queries, so each of their 24 probed partitions fills a
-    # whole group of 128 live slots.
+    # The slot-minor kernels (grouped_scan_f32, grouped_scan8) at three
+    # routings: search_adc's b=32 groups (~3 live slots), b=128's (~12), and
+    # a hot partition: 128 near-duplicate queries, so each of their 24 probed
+    # partitions fills a whole group of 128 live slots.
     hot = queries[1] + 1e-3 * torch.randn((128, 128), generator=gen_hot, device=device)
     grouped_shapes = {"b=32": qadc, "b=128": queries[128], "hot": hot}
     f32_src = "qadc_tpu_torch/csrc/grouped_scan_sm.cu"
@@ -735,41 +707,36 @@ def main() -> int:
             print(f"grouped {bits}-bit [{tag}]: {int((live > 0).sum())} live groups of "
                   f"{groups[1].shape[0]}, live slots mean {mean:.2f} max {int(live.max())}",
                   flush=True)
-            # The new kernel equals the arm and its own walk in PyTorch bit for
-            # bit, minima and argmin ids (the plain versions: the kernel phases).
+            # The kernel equals its own walk in PyTorch bit for bit, minima and
+            # argmin ids (the plain versions: the kernel phases).
             if bits == 4:
-                got, arm = lut_scan.grouped_scan(*args), lut_scan.grouped_scan_f32_lookup(*args)
+                got = lut_scan.grouped_scan(*args)
                 walk = lut_scan.grouped_scan_slot_minor_plain(*args)
-                check(torch.equal(got, arm) and torch.equal(got, walk),
-                      f"grouped_scan_f32[{tag}] differs from its arm or its slot-minor walk")
+                check(torch.equal(got, walk),
+                      f"grouped_scan_f32[{tag}] differs from its slot-minor walk")
             else:
-                got, arm = lut_scan.grouped_scan8(*args), lut_scan.grouped_scan8_lookup(*args)
+                got = lut_scan.grouped_scan8(*args)
                 walk = lut_scan.grouped_scan8_slot_minor_plain(*args)
-                check(all(torch.equal(a, b) for x in (arm, walk) for a, b in zip(got, x)),
-                      f"grouped_scan8[{tag}] differs from its arm or its slot-minor walk")
-            del got, arm, walk
+                check(all(torch.equal(a, b) for a, b in zip(got, walk)),
+                      f"grouped_scan8[{tag}] differs from its slot-minor walk")
+            del got, walk
             suffix = "" if tag == "b=32" else f"[{tag}]"
             if bits == 4:
-                rows = (("grouped_scan_f32", lut_scan.grouped_scan, "grouped_scan_sm_kernel",
-                         f32_src, REPS),
-                        ("grouped_scan_f32_lookup", lut_scan.grouped_scan_f32_lookup,
-                         "grouped_scan_kernel", "qadc_tpu_torch/csrc/grouped_scan.cu", ARM_REPS))
+                name, fn, cu_name, src = ("grouped_scan_f32", lut_scan.grouped_scan,
+                                          "grouped_scan_sm_kernel", f32_src)
                 plain = lut_scan.grouped_scan_plain
                 compare = lambda got, want: inf_float_err(  # noqa: E731
                     torch, got, want, "grouped_scan_f32")
                 replaces = "qadc_tpu/kernels/lut_scan.py:857"
             else:
-                rows = (("grouped_scan8", lut_scan.grouped_scan8, "grouped_scan8_sm_kernel",
-                         u8_src, REPS),
-                        ("grouped_scan8_lookup", lut_scan.grouped_scan8_lookup,
-                         "grouped_scan8_kernel", "qadc_tpu_torch/csrc/grouped_scan8.cu", ARM_REPS))
+                name, fn, cu_name, src = ("grouped_scan8", lut_scan.grouped_scan8,
+                                          "grouped_scan8_sm_kernel", u8_src)
                 plain, compare = lut_scan.grouped_scan8_plain, scan8_err
                 replaces = "qadc_tpu/kernels/lut_scan.py:1872"
-            for name, fn, cu_name, src, reps in rows:
-                kernel_phase(name + suffix, cu_name, src, replaces,
-                             lambda fn=fn, args=args: fn(*args),
-                             lambda plain=plain, args=args: plain(*args), compare,
-                             *grouped_work(ix, p, args[1], groups), PEAK_F32, reps=reps)
+            kernel_phase(name + suffix, cu_name, src, replaces,
+                         lambda fn=fn, args=args: fn(*args),
+                         lambda plain=plain, args=args: plain(*args), compare,
+                         *grouped_work(ix, p, args[1], groups), PEAK_F32)
     m1f_args, m8_args = grouped_args[4, "b=32"][0], grouped_args[8, "b=32"][0]
 
     # The flat scans over the 1M-code flat indexes, at their searches' shapes.
@@ -811,13 +778,9 @@ def main() -> int:
         check(torch.equal(got, want), "flat_scan differs from its one-hot plain version")
     del got, want
     # At 128 queries flat_scan's int8 kernel is the warpgroup one, at 32 the
-    # mma.sync one (lut_scan.WGMMA_MIN_QUERIES); flat_scan_lookup is the kernel
-    # both replaced.
+    # mma.sync one (lut_scan.WGMMA_MIN_QUERIES).
     fqt32 = fqt[:32].contiguous()
     check(fqt.shape[0] >= lut_scan.WGMMA_MIN_QUERIES > fqt32.shape[0], "flat_scan kernel choice")
-    check(torch.equal(lut_scan.flat_scan(fi4.codes, fqt32, fi4.n)[0],
-                      lut_scan.flat_scan_lookup(fi4.codes, fqt32, fi4.n)[0]),
-          "flat_scan[b=32] differs from flat_scan_lookup")
     # With float tables at 128 queries and for flat_scan8 at 32 the kernels are
     # the query-minor ones; each equals the kernel it replaced and its own
     # walk in PyTorch bit for bit, minima and argmin ids.
@@ -847,12 +810,6 @@ def main() -> int:
          flat_rows_exact, 281),
         ("flat_scan[b=32]", lut_scan.flat_scan, mma, (fi4.codes, fqt32, fi4.n), flat_rows_exact,
          522),
-        ("flat_scan_lookup[b=32]", lut_scan.flat_scan_lookup, lookup, (fi4.codes, fqt32, fi4.n),
-         flat_rows_exact, 522),
-        ("flat_scan_lookup", lut_scan.flat_scan_lookup, lookup, (fi4.codes, fqt, fi4.n),
-         flat_rows_exact, 522),
-        ("flat_scan_lookup[with_rows]", lut_scan.flat_scan_lookup, lookup,
-         (fi4.codes, fqt, fi4.n, True), flat_rows_exact, 281),
         ("flat_scan_f32", lut_scan.flat_scan, query_minor, (fi4.codes, ft4, fi4.n), f32_err, 522),
         ("flat_scan_f32_lookup", lut_scan.flat_scan_f32_lookup, lookup, (fi4.codes, ft4, fi4.n),
          f32_err, 522),
@@ -862,7 +819,7 @@ def main() -> int:
                      lambda fn=fn, a=args: fn(*a),
                      lambda a=args: lut_scan.flat_scan_plain(*a), compare,
                      *flat_work(*args[:3]),
-                     reps=ARM_REPS if name == "flat_scan_f32_lookup" else REPS)
+                     reps=LAB_REPS if name == "flat_scan_f32_lookup" else REPS)
     for name, fn, cu_name, src in (
         ("flat_scan8", lut_scan.flat_scan8, "flat_scan8_qm_kernel", "flat_scan8_qm.cuh"),
         ("flat_scan8_lookup", lut_scan.flat_scan8_lookup, "flat_scan8_kernel", "flat_scan8.cu"),
@@ -872,12 +829,11 @@ def main() -> int:
                      lambda fn=fn: fn(fi8.codes, ft8, fi8.n),
                      lambda: lut_scan.flat_scan8_plain(fi8.codes, ft8, fi8.n),
                      argmin_err(name), *flat_work(fi8.codes, ft8, fi8.n),
-                     reps=ARM_REPS if name == "flat_scan8_lookup" else REPS)
+                     reps=LAB_REPS if name == "flat_scan8_lookup" else REPS)
 
     # M2 at the id lists the searches hand it: a Kernels whose rows_adc
     # records each launch's arguments, then calls the real one. The staged
-    # kernel and the arm it replaced (rows_adc_cached) at each, and at random
-    # rerank ids (no runs: the worst case).
+    # kernel at each, and at random rerank ids (no runs: the worst case).
     def recorded_m2(run):
         calls = []
 
@@ -924,11 +880,8 @@ def main() -> int:
     for shape, path, m2_args in m2_shapes:
         row_ids, pair_ids = m2_args[1:3]
         cpr = 128 // (m2_args[3].shape[1] // 16)
-        got = lut_scan.rows_adc(*m2_args)
-        check(torch.equal(got, lut_scan.rows_adc_cached(*m2_args))
-              and torch.equal(got, lut_scan.rows_adc_staged_plain(*m2_args)),
-              f"rows_adc[{shape}] differs from the arm or its staged walk")
-        del got
+        check(torch.equal(lut_scan.rows_adc(*m2_args), lut_scan.rows_adc_staged_plain(*m2_args)),
+              f"rows_adc[{shape}] differs from its staged walk")
         runs = lut_scan.rows_adc_runs(pair_ids)[0].sum(1).float()
         a = row_ids.shape[0]
         print(f"rows_adc [{shape}]: A={a}, {torch.unique(row_ids).numel()} rows, "
@@ -940,19 +893,12 @@ def main() -> int:
                  + torch.unique(pair_ids).numel() * 2 * m2_args[3].shape[1] * 4)
         name = ("keep-prefix" if shape == "ivf b=128 keep-prefix" else
                 "rerank" if shape == "random" else shape)
-        for base, fn, cu_name in (("rows_adc", lut_scan.rows_adc, "rows_adc_kernel"),
-                                  ("rows_adc_cached", lut_scan.rows_adc_cached,
-                                   "rows_adc_cached_kernel")):
-            kernel_phase(f"{base}[{name} A={a}]", cu_name, m2_src,
-                         "qadc_tpu/kernels/lut_scan.py:1148",
-                         lambda fn=fn, m2_args=m2_args: fn(*m2_args),
-                         lambda m2_args=m2_args: lut_scan.rows_adc_plain(*m2_args),
-                         m2_exact(base), moved, a * cpr * index.pq.sq_count, PEAK_F32,
-                         path=path)
-    m2_ab = {k[len("rows_adc["):-1]: (v["ms"], kernels["rows_adc_cached" + k[len("rows_adc"):]]["ms"])
-             for k, v in kernels.items() if k.startswith("rows_adc[")}
-    print("M2 A/B, device ms staged / arm: " + "; ".join(
-        f"{k} {new:.5f} / {arm:.5f}" for k, (new, arm) in m2_ab.items()) + f" [{card}]", flush=True)
+        kernel_phase(f"rows_adc[{name} A={a}]", "rows_adc_kernel", m2_src,
+                     "qadc_tpu/kernels/lut_scan.py:1148",
+                     lambda m2_args=m2_args: lut_scan.rows_adc(*m2_args),
+                     lambda m2_args=m2_args: lut_scan.rows_adc_plain(*m2_args),
+                     m2_exact("rows_adc"), moved, a * cpr * index.pq.sq_count, PEAK_F32,
+                     path=path)
 
     # ---- 2. the main path, through the kernels -----------------------------
     def search(b, kernels_=lut_scan.DISPATCH):
@@ -1007,7 +953,7 @@ def main() -> int:
         print(f"{path} launches: {launches[path]}", flush=True)
         for name in PATH_KERNELS[path]:
             check(launches[path][name] > 0, f"kernel {name} was not launched by {path}")
-        for name in LOOKUP_ONLY:  # A/B instruments: only the lab may launch them
+        for name in LOOKUP_ONLY:  # threshold instruments: only the lab may launch them
             check(path == "scan_lab" or launches[path][name] == 0, f"{path} launched {name}")
         return out
 
@@ -1068,7 +1014,7 @@ def main() -> int:
     for bits in (4, 8, 16):
         path = f"adc{bits}"
         d, lab = got = drive(path, lambda: search_adc(bits))
-        # One grouped scan a search, by the slot-minor kernel (the arms: none).
+        # One grouped scan a search, by the slot-minor kernel.
         for scan in PATH_KERNELS[path]:
             check(scan == "rows_adc" or launches[path][scan] == 1, f"{path}: {scan} launches")
         plain_overlap = check_vs_plain(path, ADC_BATCH, got, search_adc(bits, lut_scan.PLAIN))
@@ -1233,11 +1179,6 @@ def main() -> int:
     for b in BATCHES:
         m3_phases(cli_index, f"cli b={b}",
                   recorded_m3(cli_index, torch.from_numpy(cli_q_np[:b]).to(device)), "crossover")
-    m3_ab = {k[len("direct_scan"):]: (v["ms"], kernels["direct_scan_blocks" + k[len("direct_scan"):]]["ms"])
-             for k, v in kernels.items() if k.split("[")[0] == "direct_scan"}
-    print("M3 A/B, device ms chunked / arm: " + "; ".join(
-        f"{k or '[b=1]'} {new:.5f} / {arm:.5f}" for k, (new, arm) in m3_ab.items()) + f" [{card}]",
-        flush=True)
     print("M3 rounds sweep, device ms (two turns): " + json.dumps(m3_rounds) + f" [{card}]",
           flush=True)
     del cli_index
@@ -1262,11 +1203,9 @@ def main() -> int:
         return 0.0
 
     # The int8 window scan on the tensor cores (the warpgroup kernel, at
-    # b=128 and at b=32, where a group of 128 queries is partly masked) and
-    # the lookup kernel it replaced (flat_scan_window_lookup) in turns,
-    # held to each other, to the plain version and to the tile walk bit for
-    # bit; at W = cpr also to flat_scan.
-    window_src = "qadc_tpu_torch/csrc/flat_scan_window.cu"
+    # b=128 and at b=32, where a group of 128 queries is partly masked), held
+    # to the plain version and to the tile walk bit for bit; at W = cpr also
+    # to flat_scan.
     for tag, ix, tab, bn, w, kw, replaces in (
         ("b1024 w16", fw, wqt, 1024, 16, {}, 281),
         ("b1024 w16 transposed", fw, wqt, 1024, 16, {"transpose_out": True}, 281),
@@ -1278,34 +1217,30 @@ def main() -> int:
     ):
         args = (ix.codes, tab, ix.n, bn, w)
         got = lut_scan.flat_scan_window(*args, **kw)
-        for what, other in (("its arm", lut_scan.flat_scan_window_lookup(*args, **kw)),
-                            ("its tile walk", lut_scan.flat_scan_window_tiles_plain(*args, **kw))):
-            check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, other)),
-                  f"flat_scan_window[{tag}] differs from {what}")
+        other = lut_scan.flat_scan_window_tiles_plain(*args, **kw)
+        check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, other)),
+              f"flat_scan_window[{tag}] differs from its tile walk")
         if w == 128 // (tab.shape[1] // 2):  # W = cpr: a window is a storage row
             rows = lut_scan.flat_scan(ix.codes, tab, ix.n, "with_rows" in kw)
             mins = got[0] if kw.get("transpose_out") else got[0].T
             check(torch.equal(mins, rows[0]) and (got[1] is None or torch.equal(got[1].T, rows[1])),
                   f"flat_scan_window[{tag}] differs from flat_scan at W = cpr")
         del got, other
-        for base, fn, cu_name, src, reps in (
-            ("flat_scan_window", lut_scan.flat_scan_window, "flat_scan_window_wgmma_kernel",
-             "qadc_tpu_torch/csrc/scan_wgmma.cu", REPS),
-            ("flat_scan_window_lookup", lut_scan.flat_scan_window_lookup,
-             "flat_scan_window_kernel", window_src, ARM_REPS),
-        ):
-            kernel_phase(f"{base}[{tag}]", cu_name, src, f"qadc_tpu/kernels/lut_scan.py:{replaces}",
-                         lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
-                         lambda args=args, kw=kw: lut_scan.flat_scan_window_plain(*args, **kw),
-                         window_exact, *flat_work(ix.codes, tab, ix.n), reps=reps)
+        kernel_phase(f"flat_scan_window[{tag}]", "flat_scan_window_wgmma_kernel",
+                     "qadc_tpu_torch/csrc/scan_wgmma.cu",
+                     f"qadc_tpu/kernels/lut_scan.py:{replaces}",
+                     lambda args=args, kw=kw: lut_scan.flat_scan_window(*args, **kw),
+                     lambda args=args, kw=kw: lut_scan.flat_scan_window_plain(*args, **kw),
+                     window_exact, *flat_work(ix.codes, tab, ix.n))
     # The float32 window scan: the query-minor kernel (from
     # WINDOW_QUERY_MINOR_MIN_QUERIES queries on; at b=16 the wrapper runs the
-    # lookup kernel itself) and the lookup kernel it replaced
+    # lookup kernel itself) and the lookup kernel forced at any batch
     # (flat_scan_window_f32_lookup), in turns, held to each other, to the
     # plain version and to the query-minor walk bit for bit (minima,
     # transposed minima, ids); at W = cpr also to float flat_scan with rows.
     # Ceiling: 2*CB float lookups a (query, real code), 4 bytes each,
     # against SMEM_BYTES_PER_CLOCK on every SM at the maximum clock.
+    window_src = "qadc_tpu_torch/csrc/flat_scan_window.cu"
     qm_window_src = "qadc_tpu_torch/csrc/flat_scan_window_qm.cu"
     perm4_src = "qadc_tpu_torch/csrc/flat_scan_window_perm4.cu"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -1319,7 +1254,7 @@ def main() -> int:
         for kw in ({}, {"with_rows": True}, {"transpose_out": True}):
             got = lut_scan.flat_scan_window(*args, **kw)
             for what, other in (
-                    ("its arm", lut_scan.flat_scan_window_f32_lookup(*args, **kw)),
+                    ("the lookup kernel", lut_scan.flat_scan_window_f32_lookup(*args, **kw)),
                     ("its plain version", lut_scan.flat_scan_window_plain(*args, **kw)),
                     ("its walk", lut_scan.flat_scan_window_query_minor_plain(*args, **kw))):
                 check(all(a is b is None or torch.equal(a, b) for a, b in zip(got, other)),
@@ -1341,13 +1276,13 @@ def main() -> int:
             kernel_phase(f"{base}[{tag}]", cu_name, src, "qadc_tpu/kernels/lut_scan.py:281",
                          lambda fn=fn, args=args: fn(*args),
                          lambda args=args: lut_scan.flat_scan_window_plain(*args),
-                         window_exact, *flat_work(ix.codes, tab, ix.n), reps=ARM_REPS)
+                         window_exact, *flat_work(ix.codes, tab, ix.n), reps=LAB_REPS)
         ceiling_ms[f"flat_scan_window_f32[{tag}]"] = (
             lookups * 4 / (SMEM_BYTES_PER_CLOCK * sms * clock_hz) * 1e3)
 
-    # Kernel 10: the four-lookup register engine and the kernel it replaced,
-    # in turns, held to flat_scan_window and to each other bit for bit, at
-    # the window scans' shapes and at 32x4 (block 8, W 2): 4 windows a block.
+    # Kernel 10: the four-lookup register engine, held to flat_scan_window
+    # bit for bit, at the window scans' shapes and at 32x4 (block 8, W 2): 4
+    # windows a block.
     # Its ceiling, a model: the integer-pipe instructions a lookup of the
     # compiled loop that the shape's G runs (cuobjdump; the fold loop for G =
     # 1, 2, 4, the eight-windows loop, nested in the walk over window groups,
@@ -1373,38 +1308,29 @@ def main() -> int:
                                 ("32x4 b1024 w16", fw32, wqt32, 1024, 16),
                                 ("32x4 b8 w2", fw32, wqt32, 8, 2)):
         args = (ix.codes, tab, ix.n, bn, w)
-        got = lut_scan.flat_scan_window_regs(*args)
-        for what, other in (("flat_scan_window", lut_scan.flat_scan_window(*args)[0]),
-                            ("its arm", lut_scan.flat_scan_window_regs_single(*args))):
-            check(torch.equal(got, other), f"flat_scan_window_regs[{tag}] differs from {what}")
-        del got, other
+        check(torch.equal(lut_scan.flat_scan_window_regs(*args),
+                          lut_scan.flat_scan_window(*args)[0]),
+              f"flat_scan_window_regs[{tag}] differs from flat_scan_window")
         cb = tab.shape[1] // 2
-        for base, fn, cu_name, src in (
-            ("flat_scan_window_regs", lut_scan.flat_scan_window_regs,
-             "flat_scan_window_perm4_kernel", perm4_src),
-            ("flat_scan_window_regs_single", lut_scan.flat_scan_window_regs_single,
-             "flat_scan_window_regs_kernel", window_src),
-        ):
-            kernel_phase(f"{base}[{tag}]", cu_name, src, "qadc_tpu/kernels/lut_scan.py:631",
-                         lambda fn=fn, args=args: fn(*args),
-                         lambda args=args: lut_scan.flat_scan_window_plain(*args)[0],
-                         regs_exact, *flat_work(ix.codes, tab, ix.n), reps=ARM_REPS)
+        kernel_phase(f"flat_scan_window_regs[{tag}]", "flat_scan_window_perm4_kernel", perm4_src,
+                     "qadc_tpu/kernels/lut_scan.py:631",
+                     lambda args=args: lut_scan.flat_scan_window_regs(*args),
+                     lambda args=args: lut_scan.flat_scan_window_plain(*args)[0],
+                     regs_exact, *flat_work(ix.codes, tab, ix.n), reps=LAB_REPS)
         loop = hot_loop(cb, bn // w)
         ceiling_ms[f"flat_scan_window_regs[{tag}]"] = (
             tab.shape[0] * ix.n * tab.shape[1] * loop["alu_per_lookup"]
             / (INT_LANES_PER_CLOCK * sms * clock_hz) * 1e3)
         ceiling_loop[f"flat_scan_window_regs[{tag}]"] = (
             f", {'eight-windows' if loop['nested'] else 'fold'} loop at {loop['start']:#x}")
-    arm_of = {"flat_scan_window": "flat_scan_window_lookup",
-              "flat_scan_window_f32": "flat_scan_window_f32_lookup",
-              "flat_scan_window_regs": "flat_scan_window_regs_single"}
     for name, k in kernels.items():
         base, _, rest = name.partition("[")
-        if base in arm_of:
-            k["arm_ms"] = kernels[f"{arm_of[base]}[{rest}"]["ms"]
-    window_ab = {name: (k["ms"], k["arm_ms"]) for name, k in kernels.items() if "arm_ms" in k}
-    print("window A/B, device ms new / arm: " + "; ".join(
-        f"{k} {new:.5f} / {arm:.5f}" for k, (new, arm) in window_ab.items()) + f" [{card}]",
+        if base == "flat_scan_window_f32":
+            k["lookup_ms"] = kernels[f"flat_scan_window_f32_lookup[{rest}"]["ms"]
+    window_ab = {name: (k["ms"], k["lookup_ms"]) for name, k in kernels.items()
+                 if "lookup_ms" in k}
+    print("window A/B, device ms flat_scan_window_f32 / the lookup kernel forced: " + "; ".join(
+        f"{k} {new:.5f} / {lookup:.5f}" for k, (new, lookup) in window_ab.items()) + f" [{card}]",
         flush=True)
     print("window ceilings, ms (a model, not measured: float lookups at "
           f"{SMEM_BYTES_PER_CLOCK} shared-memory bytes a clock, the register engine's "
@@ -1439,16 +1365,16 @@ def main() -> int:
                            regs_v.to(torch.float32)).amin(dim=0)
         check(torch.equal(wmin, tv[:, 0]), f"regs {tag}: best window differs from the top-1")
         del exact
-        # The same screen over the arm's windows: lut_scan_topk_int8's results unchanged.
-        av, ai = lut_scan.flat_scan_window_lookup(ix.codes, tab, ix.n, 1024, 16, with_rows=True)
+        # The same screen over the plain version's windows: lut_scan_topk_int8's results unchanged.
+        av, ai = lut_scan.flat_scan_window_plain(ix.codes, tab, ix.n, 1024, 16, with_rows=True)
         av = torch.where(ai >= 0, av.to(torch.float32), torch.inf).T
         sv, sel = exact_tile_screen(av, min(R, av.shape[1]))
         check(torch.equal(sv, tv) and torch.equal(torch.gather(ai.T, 1, sel.long()), ti),
-              f"topk {tag}: differs from the screen of the arm's windows")
+              f"topk {tag}: differs from the screen of the plain version's windows")
         topk_ms = device_ms(torch, lambda: lut_scan.lut_scan_topk_int8(ix.codes, tab, R, ix.n,
                                                                        1024, 16))
         print(f"window path {tag}: lut_scan_topk_int8 r={R} values exact, ids < n, top-1 equal "
-              f"to the exact scan and to the arm's screen; flat_scan_window_regs' best window "
+              f"to the exact scan and to the plain screen; flat_scan_window_regs' best window "
               f"equal; device ms of the call {topk_ms:.4f} [{card}]", flush=True)
 
     # ---- 6. the scan lab over the trained flat 16x4 codes, b=128 ---------------
@@ -1496,17 +1422,16 @@ def main() -> int:
     # is the routing it reads.
     def grouped_lab_run(args, mode):
         out = scan_lab.grouped_lab(*args, mode)
-        return None if scan_lab.GROUPED_LAB_MODES[mode][2] is None else out
+        return None if scan_lab.GROUPED_LAB_MODES[mode][1] is None else out
 
-    for mode, (scan, kern, number, _) in scan_lab.GROUPED_LAB_MODES.items():
+    for mode, (scan, number, _) in scan_lab.GROUPED_LAB_MODES.items():
         bits = 4 if scan == "f32" else 8
         (args, probes), ix = grouped_args[bits, "b=32"], adc_indexes[bits]
         moved, adds = grouped_work(ix, probes, args[1], args[2:])
         if number is None:
             moved, adds = nbytes(*args[2:]), 0
-        kernel_phase(f"scan_lab[grouped_{mode}]", scan_lab.GROUPED_LAB_KERNELS[scan, kern],
-                     (f32_src if scan == "f32" else u8_src) if kern == "sm" else
-                     f"qadc_tpu_torch/csrc/grouped_scan{'' if bits == 4 else '8'}.cu",
+        kernel_phase(f"scan_lab[grouped_{mode}]", scan_lab.GROUPED_LAB_KERNELS[scan],
+                     f32_src if scan == "f32" else u8_src,
                      f"qadc_tpu/kernels/lut_scan.py:{947 if bits == 4 else 1970}",
                      lambda mode=mode, args=args: grouped_lab_run(args, mode),
                      # quad computes the scan itself: held to its plain version
@@ -1531,12 +1456,10 @@ def main() -> int:
              for name, fn in scan_lab.ab_scans(fw.codes, wqt, fw.n).items()}
     print(f"A/B b=128 x {fw.n_pad} trained 16x4 codes, device ms: flat_scan (int8 one-hot x "
           f"table wgmma) {ab_ms['flat_scan']:.4f}; by mma.sync "
-          f"{kernels['scan_lab[full]']['ms']:.4f}; flat_scan_lookup {ab_ms['flat_scan_lookup']:.4f}; "
+          f"{kernels['scan_lab[full]']['ms']:.4f}; "
           f"flat_scan_window (block 1024, W 16, transposed; wgmma) {ab_ms['flat_scan_window']:.4f}; "
-          f"flat_scan_window_lookup {ab_ms['flat_scan_window_lookup']:.4f}; "
-          f"flat_scan_window_regs (four lookups a permute) {ab_ms['flat_scan_window_regs']:.4f}; "
-          f"flat_scan_window_regs_single {ab_ms['flat_scan_window_regs_single']:.4f} [{card}]",
-          flush=True)
+          f"flat_scan_window_regs (four lookups a permute) {ab_ms['flat_scan_window_regs']:.4f} "
+          f"[{card}]", flush=True)
     print(json.dumps({"scan_lab": {
         "shape": f"b={wqt.shape[0]} x {fw.n_pad} trained 16x4 codes", "ab_ms": ab_ms,
         "mode_ms": {mode: kernels[f"scan_lab[{mode}]"]["ms"] for mode in scan_lab.LAB_MODES},

@@ -1,6 +1,7 @@
-// Kernels 7 + 8: flat 4-bit ADC scan to per-query row minima, with int8
-// tables (Quick ADC) or float32 tables (conventional 4-bit ADC), and
-// optionally the code index of each minimum.
+// Kernels 7 + 8: flat 4-bit ADC scan to per-query row minima with float32
+// tables (conventional 4-bit ADC), and optionally the code index of each
+// minimum. Int8 tables (Quick ADC) run on the tensor cores (scan_mma.cu,
+// scan_wgmma.cu).
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_tq (byte-plane storage)
 // and lut_scan_reduce (row128 storage; min-only with transpose_out, or
@@ -8,15 +9,14 @@
 // = cpr (cpr = 128 / CB codes per 128-byte row), window i of both is storage
 // row i, so they share one output contract, which this kernel keeps: for
 // every query and every storage row, the minimum over the row's codes of
-// sum_m T[m][nibble_m], in int32 with no 127 saturation (int8 tables) or in
-// float32 (float tables), written per-query ((Q, R), the transpose_out
-// layout), and with rows, the argmin's code index, ties to the lower code.
+// sum_m T[m][nibble_m] in float32, written per-query ((Q, R), the
+// transpose_out layout), and with rows, the argmin's code index, ties to the
+// lower code.
 //
 // Padded codes: codes at or past n never enter a minimum (the port's
-// padded-code rule), and a row holding no real code gets the trim sentinel
-// (1 << 30 for int8 tables, +inf for float) and index -1. The per-code sum
-// is adc4_sum.cuh's, in rows_adc's order, so a float minimum is bit for bit
-// the rerank's distance of one of the row's codes.
+// padded-code rule), and a row holding no real code gets +inf and index -1.
+// The per-code sum is adc4_sum.cuh's, in rows_adc's order, so a minimum is
+// bit for bit the rerank's distance of one of the row's codes.
 //
 // What bounds it on the H100: shared-memory table lookups and the integer
 // work around them, not bytes. Every (query, code) pair costs 2*CB lookups
@@ -32,11 +32,10 @@
 // at most 64 KB: a float table of 32 sub-quantizers is 2 KB, and 128 queries
 // would not fit one block. Writes to out[q, row] are coalesced across a warp.
 //
-// Where it runs: its time follows the query count, so it serves float tables
-// below lut_scan.QUERY_MINOR_MIN_QUERIES queries, where the query-minor
-// kernel (flat_scan_qm.cuh), whose lanes are queries, would idle; and at any
-// batch as the A/B arms lut_scan.flat_scan_lookup (int8) and
-// flat_scan_f32_lookup (float32) of the kernels that replaced it.
+// Where it runs: its time follows the query count, so it serves below
+// lut_scan.QUERY_MINOR_MIN_QUERIES queries, where the query-minor kernel
+// (flat_scan_qm.cuh), whose lanes are queries, would idle; and at any batch
+// as lut_scan.flat_scan_f32_lookup, which measures that crossover.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,23 +45,20 @@
 
 namespace {
 
-using qadc::Acc;
-
 constexpr int kRowsPerBlock = 128;
 
-template <int CB, typename T, bool kWithRows>
+template <int CB, bool kWithRows>
 __global__ void __launch_bounds__(kRowsPerBlock)
-flat_scan_kernel(const uint8_t* __restrict__ codes,         // (R, 128)
-                 const T* __restrict__ tables,              // (Q, 2*CB, 16)
-                 typename Acc<T>::type* __restrict__ out,   // (Q, R)
-                 int32_t* __restrict__ rows_out,            // (Q, R), kWithRows only
+flat_scan_kernel(const uint8_t* __restrict__ codes,    // (R, 128)
+                 const float* __restrict__ tables,     // (Q, 2*CB, 16)
+                 float* __restrict__ out,              // (Q, R)
+                 int32_t* __restrict__ rows_out,       // (Q, R), kWithRows only
                  int r_count, int q_count, int n, int chunk) {
-  using A = typename Acc<T>::type;
   constexpr int kTable = 2 * CB * 16;  // entries of one query's table
-  constexpr int kVecs = kTable * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kVecs = kTable * 4 / 16;
   constexpr int kCpr = 128 / CB;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tab = reinterpret_cast<T*>(smem);  // (chunk, 2*CB, 16)
+  float* s_tab = reinterpret_cast<float*>(smem);  // (chunk, 2*CB, 16)
 
   const int q0 = blockIdx.y * chunk;
   const int nq = min(chunk, q_count - q0);
@@ -77,7 +73,7 @@ flat_scan_kernel(const uint8_t* __restrict__ codes,         // (R, 128)
   const size_t o = static_cast<size_t>(q0) * r_count + row;
   if (real <= 0) {
     for (int q = 0; q < nq; ++q) {
-      out[o + static_cast<size_t>(q) * r_count] = Acc<T>::trim();
+      out[o + static_cast<size_t>(q) * r_count] = INFINITY;
       if (kWithRows) rows_out[o + static_cast<size_t>(q) * r_count] = -1;
     }
     return;
@@ -86,12 +82,12 @@ flat_scan_kernel(const uint8_t* __restrict__ codes,         // (R, 128)
   uint32_t w[32];
   qadc::load_row(codes + static_cast<size_t>(row) * 128, w);
   for (int q = 0; q < nq; ++q) {
-    const T* t = s_tab + q * kTable;
-    A best = Acc<T>::none();
+    const float* t = s_tab + q * kTable;
+    float best = INFINITY;
     int arg = 0;
 #pragma unroll
     for (int c = 0; c < kCpr; ++c) {
-      const A acc = qadc::adc4_sum<CB>(w, c, t);
+      const float acc = qadc::adc4_sum<CB>(w, c, t);
       if (c < real && acc < best) {  // strict: ties keep the lower code
         best = acc;
         arg = c;
@@ -102,48 +98,42 @@ flat_scan_kernel(const uint8_t* __restrict__ codes,         // (R, 128)
   }
 }
 
-template <int CB, typename T, bool kWithRows>
+template <int CB, bool kWithRows>
 cudaError_t launch(const void* codes, const void* tables, void* out, void* rows_out,
                    int r_count, int q_count, int n, cudaStream_t stream) {
-  constexpr int kQueryBytes = 2 * CB * 16 * static_cast<int>(sizeof(T));
+  constexpr int kQueryBytes = 2 * CB * 16 * 4;
   const qadc::SlotChunks chunks = qadc::slot_chunks(q_count, kQueryBytes);
   const size_t smem = static_cast<size_t>(chunks.chunk) * kQueryBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flat_scan_kernel<CB, T, kWithRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flat_scan_kernel<CB, kWithRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((r_count + kRowsPerBlock - 1) / kRowsPerBlock, chunks.count);
-  flat_scan_kernel<CB, T, kWithRows><<<grid, kRowsPerBlock, smem, stream>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const T*>(tables),
-      static_cast<typename Acc<T>::type*>(out), static_cast<int32_t*>(rows_out), r_count,
-      q_count, n, chunks.chunk);
+  flat_scan_kernel<CB, kWithRows><<<grid, kRowsPerBlock, smem, stream>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const float*>(tables),
+      static_cast<float*>(out), static_cast<int32_t*>(rows_out), r_count, q_count, n,
+      chunks.chunk);
   return cudaGetLastError();
 }
 
-template <int CB, typename T>
+template <int CB>
 cudaError_t launch_rows(const void* codes, const void* tables, void* out, void* rows_out,
                         int r_count, int q_count, int n, cudaStream_t stream) {
   if (rows_out)
-    return launch<CB, T, true>(codes, tables, out, rows_out, r_count, q_count, n, stream);
-  return launch<CB, T, false>(codes, tables, out, nullptr, r_count, q_count, n, stream);
+    return launch<CB, true>(codes, tables, out, rows_out, r_count, q_count, n, stream);
+  return launch<CB, false>(codes, tables, out, nullptr, r_count, q_count, n, stream);
 }
 
 }  // namespace
 
-// f32 == 0: int8 tables, int32 out; f32 != 0: float32 tables and out.
-// rows_out may be null (minima only). n: real code count, 0 <= n <= r_count * cpr.
+// float32 tables and out. rows_out may be null (minima only). n: real code
+// count, 0 <= n <= r_count * cpr.
 extern "C" int qadc_flat_scan(const void* codes, const void* tables, void* out,
                               void* rows_out, int r_count, int q_count, int n, int cb,
-                              int f32, void* stream) {
+                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (q_count < 1 || r_count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (cb == 8 && !f32)
-    return launch_rows<8, int8_t>(codes, tables, out, rows_out, r_count, q_count, n, s);
-  if (cb == 16 && !f32)
-    return launch_rows<16, int8_t>(codes, tables, out, rows_out, r_count, q_count, n, s);
-  if (cb == 8 && f32)
-    return launch_rows<8, float>(codes, tables, out, rows_out, r_count, q_count, n, s);
-  if (cb == 16 && f32)
-    return launch_rows<16, float>(codes, tables, out, rows_out, r_count, q_count, n, s);
+  if (cb == 8) return launch_rows<8>(codes, tables, out, rows_out, r_count, q_count, n, s);
+  if (cb == 16) return launch_rows<16>(codes, tables, out, rows_out, r_count, q_count, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

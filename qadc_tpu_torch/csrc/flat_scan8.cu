@@ -37,7 +37,7 @@
 // Where it runs: its time follows the query count, so it serves batches below
 // lut_scan.QUERY_MINOR_MIN_QUERIES8 queries, where the query-minor kernel
 // (flat_scan8_qm.cuh), whose lanes are queries, would idle; and at any batch
-// as the A/B arm lut_scan.flat_scan8_lookup of that kernel.
+// as lut_scan.flat_scan8_lookup, which measures that crossover.
 
 #include <cmath>
 #include <cstdint>

@@ -1,8 +1,7 @@
 // Kernels 7 + 8 with float32 tables, query-minor: the flat 4-bit ADC scan to
 // per-query row minima (conventional 4-bit ADC), and optionally the code
 // index of each minimum. The same contract, bit for bit, as flat_scan.cu's
-// float instantiation, which it replaces from lut_scan.QUERY_MINOR_MIN_QUERIES
-// queries on.
+// kernel, which it replaces from lut_scan.QUERY_MINOR_MIN_QUERIES queries on.
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_tq and lut_scan_reduce at
 // window = cpr with acc_dtype_name="float32" (see flat_scan.cu for the

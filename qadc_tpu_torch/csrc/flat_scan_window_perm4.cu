@@ -5,9 +5,6 @@
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_vpu_reduce (body
 // _scan_min_vpu_kernel): int8 tables, min-only (N_pad / W, Q) int32 minima,
 // bit for bit flat_scan_window's, 1 << 30 for a window with no real code.
-// The kernel it replaces, flat_scan_window.cu:flat_scan_window_regs_kernel
-// (one lookup a nibble: two permutes and a select), stays as the A/B arm
-// lut_scan.flat_scan_window_regs_single.
 //
 // What bounds it on the H100: integer instructions. Every (query, code) pair
 // costs 2*CB lookups, and an SM issues 64 integer lanes a clock, so the

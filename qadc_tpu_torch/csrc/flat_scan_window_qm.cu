@@ -1,9 +1,9 @@
 // Kernel 8 with float32 tables, query-minor: the flat 4-bit ADC scan to
 // window minima at any (block_n, window), with the argmin's code id on
-// request. The same contract, bit for bit, as flat_scan_window.cu's float
-// instantiation (flat_scan_window_kernel<CB, float, ...>), which it
-// replaces from lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES queries on and which
-// stays as the A/B arm lut_scan.flat_scan_window_f32_lookup.
+// request. The same contract, bit for bit, as flat_scan_window.cu's
+// flat_scan_window_kernel, which it replaces from
+// lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES queries on; below, and at any
+// batch as lut_scan.flat_scan_window_f32_lookup, that kernel runs.
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_reduce with
 // acc_dtype_name="float32" (see flat_scan_window.cu for the contract: the

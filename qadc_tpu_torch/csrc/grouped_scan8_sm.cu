@@ -1,21 +1,25 @@
 // Kernels 5 + 6, slot-minor: the grouped IVF 8-bit conventional-ADC scan to
-// per-window minima and the code index of each window's minimum. The same
-// contract, bit for bit, as grouped_scan8.cu, which it replaces (that kernel
-// stays as the A/B arm lut_scan.grouped_scan8_lookup).
+// per-window minima and the code index of each window's minimum.
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan8_grouped_tq (byte-plane
-// storage) and its row128 twin lut_scan8_grouped_prefetch. The contract (see
-// grouped_scan8.cu): windows at min(cpr, 8), window (r, c0) numbered r * cs +
-// c0 and holding codes c0 + k * cs of storage row r; bf16 tables summed in
-// float32 over b = 0..M-1; the minimum over the window's real codes and its
-// partition-local code index, ties to the lower code; +inf and -1 for a
-// window with no real code. M 4, 8 and 16.
+// storage) and its row128 twin lut_scan8_grouped_prefetch. Both share one
+// output contract, which this kernel keeps: for every (query, probe) pair and
+// every window of its partition, the minimum over the window's codes of
+// sum_b T[b][code byte b], the tables in bf16 and the sums in float32 over
+// b = 0..M-1, and the argmin, ties to the lowest code. The TPU kernels return
+// group-local slot ids; this one returns the partition-local code index.
+// Windows are the JAX contract at window = min(cpr, 8) (cpr = 128 / M codes
+// per 128-byte row): a window is storage row r, in-row positions c = c0 + k *
+// cs for k < window, cs = cpr / window, numbered r * cs + c0, so a partition
+// has rpp * cs windows. Codes at or past the partition's size never enter a
+// minimum (the port's padded-code rule); a window with no real code gets
+// +inf and index -1. M 4, 8 and 16.
 //
 // What bounds it on the H100: shared-memory lookups and the instructions
 // around them (24 M lookups at b=32's routed groups; flat_scan8_qm's rate of
-// 4.9 T/s would make that 5 us). The lookup kernel took 28.3 us there: 9
-// chunks of 15 slots a group gave 9,432 blocks, ~8,400 of them with no live
-// slot, and a live block's threads ran its slots one after another.
+// 4.9 T/s would make that 5 us). The lookup kernel it replaced took 28.3 us
+// there: 9 chunks of 15 slots a group gave 9,432 blocks, ~8,400 of them with
+// no live slot, and a live block's threads ran its slots one after another.
 //
 // Design (grouped_slot_minor.cuh): a persistent grid walks (window of 4
 // slots, group, tile of 128 storage rows) items, a row a thread: it holds the

@@ -1,7 +1,5 @@
 // Kernel M1 with float32 tables, slot-minor: the grouped IVF 4-bit
-// conventional-ADC scan to per-row window minima. The same contract, bit for
-// bit, as grouped_scan.cu's float instantiation, which it replaces (that
-// kernel stays as the A/B arm lut_scan.grouped_scan_f32_lookup).
+// conventional-ADC scan to per-row window minima.
 //
 // Replaces: qadc_tpu/kernels/lut_scan.py:lut_scan_grouped_tq (byte-plane
 // storage) and its row128 twin lut_scan_grouped_prefetch with
@@ -14,9 +12,10 @@
 //
 // What bounds it on the H100: shared-memory lookups, 32 four-byte entries a
 // clock an SM (48 M lookups at b=32's routed groups: 6.5 us at best). The
-// lookup kernel took 36.6 us there: two-thirds of its (group, row tile, chunk
-// of 43 slots) blocks had no live slot, and a live block's threads ran its
-// slots one after another, the blocks of the busiest groups last.
+// lookup kernel it replaced took 36.6 us there: two-thirds of its (group, row
+// tile, chunk of 43 slots) blocks had no live slot, and a live block's
+// threads ran its slots one after another, the blocks of the busiest groups
+// last.
 //
 // Design (grouped_slot_minor.cuh): a persistent grid walks (window of 4
 // slots, group, tile of 128 rows) items, a row a thread; the window's tables

@@ -4,10 +4,10 @@
 //
 // A group's G slots hold (query, probe) pair ids, -1 when empty; routing fills
 // them as a prefix, about 4 of G = 128 at IVF-256, ma=24, b=32 and 13 at
-// b=128. The lookup kernels these replace (grouped_scan.cu, grouped_scan8.cu)
-// launched a block per (group, tile, chunk of slots sized for all G) and most
-// of them found no live slot; a live block ran its slots one after another,
-// so a group of many live slots was one long block. Here the unit of work is
+// b=128. The lookup kernels these replaced launched a block per (group,
+// tile, chunk of slots sized for all G) and most of them found no live slot;
+// a live block ran its slots one after another, so a group of many live
+// slots was one long block. Here the unit of work is
 // an item: a window of kSlots = 4 consecutive slots of a group over a tile of
 // 128 of its storage rows, one row a thread and all 4 slots in the thread. A
 // persistent grid walks the items; a block checks kBatch of them in one round

@@ -1,9 +1,7 @@
-// Kernels M2 (rows_adc; rows_adc_cached, the formulation it replaced, kept
-// as an A/B arm) and M3 (direct_scan; direct_scan_blocks, likewise): exact
-// float32 ADC of 4-bit PQ codes stored as 128-byte rows, each kernel with its
-// own entry point. M2's arm and both M3 kernels share one per-code device
-// function (adc_code); the staged M2 sums the same terms in the same order
-// from its own layout (adc_code_staged).
+// Kernels M2 (rows_adc) and M3 (direct_scan): exact float32 ADC of 4-bit PQ
+// codes stored as 128-byte rows, each kernel with its own entry point. M3
+// sums a code by one per-code device function (adc_code); the staged M2 sums
+// the same terms in the same order from its own layout (adc_code_staged).
 //
 // M2 replaces qadc_tpu/kernels/lut_scan.py:rows_adc_accumulate together with
 // the selector matmul of qadc_tpu/index/ivf.py:rows_adc that reduces its
@@ -48,11 +46,6 @@
 // every shape but the flat keep-prefix, where they tie: more and smaller
 // blocks, each waiting at its barrier for fewer warps.
 //
-// rows_adc_cached_kernel is the formulation it replaced, kept as an A/B arm
-// (lut_scan.rows_adc_cached; no search launches it): one thread a code, the
-// tables read from device memory through L1, where a half-warp's 16 lookups
-// of one byte position fall on up to 4 lines (8 for a warp of two pairs).
-//
 // M3's design (direct_scan_kernel): a block takes an item, a pair and a
 // chunk of `rounds` x 1024 consecutive codes of its partition (the wrapper
 // picks rounds, lut_scan.direct_scan_rounds: 4 where the grid still has a
@@ -71,13 +64,8 @@
 // writes a code and pair (151 MB at b=128 over part_pad 12,288) and its 2*CB
 // shared-memory lookups a real code. On an NVIDIA H100 80GB HBM3 at 700 W
 // (chip_smoke.py) it runs at 63% of its bytes bound there and 1.65-2.34x
-// faster than the arm from b=32 on; which of the two holds it back is not
-// measured.
-//
-// direct_scan_blocks_kernel is the formulation it replaced, kept as an A/B
-// arm (lut_scan.direct_scan_blocks; no search launches it): a block of 256
-// codes a thread each, which stages its pair's tables, waits at the barrier
-// and only then loads its code; a warp's minimum is a five-step shuffle tree.
+// faster than the block-a-256-codes kernel it replaced from b=32 on; which of
+// the two holds it back is not measured.
 //
 // All sums run in float32 in the order b = 0..CB-1, low then high nibble,
 // with no contraction (only adds), which the plain PyTorch versions repeat:
@@ -112,17 +100,17 @@ struct CodeBytes<16> {
   }
 };
 
-// Float ADC distance of one code: sum over bytes b of lo[j_lo, b] + hi[j_hi, b],
-// where lo/hi hold sub-quantizers 2b / 2b+1 at offset j * SJ + b * SB.
-template <int CB, int SJ, int SB>
+// Float ADC distance of one code: sum over bytes b of lo[b][j_lo] + hi[b][j_hi],
+// where lo/hi hold sub-quantizers 2b / 2b+1 transposed to [byte][centroid].
+template <int CB>
 __device__ __forceinline__ float adc_code(const uint32_t* w, const float* lo,
                                           const float* hi) {
   float acc = 0.0f;
 #pragma unroll
   for (int b = 0; b < CB; ++b) {
     const uint32_t byte = (w[b >> 2] >> ((b & 3) * 8)) & 0xFFu;
-    acc += lo[(byte & 15u) * SJ + b * SB];
-    acc += hi[(byte >> 4) * SJ + b * SB];
+    acc += lo[b * 16 + (byte & 15u)];
+    acc += hi[b * 16 + (byte >> 4)];
   }
   return acc;
 }
@@ -267,26 +255,6 @@ cudaError_t launch_rows_adc(const void* codes, const void* row_ids, const void* 
   return cudaGetLastError();
 }
 
-template <int CB>
-__global__ void __launch_bounds__(kThreads)
-rows_adc_cached_kernel(const uint8_t* __restrict__ codes,   // (R, 128) all storage rows
-                       const int32_t* __restrict__ row_ids, // (A,)
-                       const int32_t* __restrict__ pair_ids,// (A,)
-                       const float* __restrict__ tlo,       // (QA, 16*CB), lane j*CB + b
-                       const float* __restrict__ thi,
-                       float* __restrict__ out,             // (A, cpr)
-                       int a_count) {
-  constexpr int kCpr = 128 / CB;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<long long>(a_count) * kCpr) return;
-  const int a = static_cast<int>(i / kCpr);
-  const int c = static_cast<int>(i % kCpr);
-  uint32_t w[CB / 4];
-  CodeBytes<CB>::load(codes + static_cast<size_t>(row_ids[a]) * 128 + c * CB, w);
-  const size_t t = static_cast<size_t>(pair_ids[a]) * 16 * CB;
-  out[i] = adc_code<CB, CB, 1>(w, tlo + t, thi + t);
-}
-
 // M3: codes a lane holds a round, and codes a block round.
 constexpr int kDirectCodes = 4;
 constexpr int kDirectRound = kThreads * kDirectCodes;  // 1024
@@ -355,7 +323,7 @@ direct_scan_kernel(const uint8_t* __restrict__ codes,    // (P, part_pad, CB)
       float d[kDirectCodes];
 #pragma unroll
       for (int k = 0; k < kDirectCodes; ++k)
-        d[k] = c0 + k < size ? adc_code<CB, 1, 16>(w + k * (CB / 4), s_tab, s_tab + kTab)
+        d[k] = c0 + k < size ? adc_code<CB>(w + k * (CB / 4), s_tab, s_tab + kTab)
                              : kMaskBig;
       *reinterpret_cast<float4*>(row + c0) = make_float4(d[0], d[1], d[2], d[3]);
       float m = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
@@ -367,41 +335,6 @@ direct_scan_kernel(const uint8_t* __restrict__ codes,    // (P, part_pad, CB)
 #pragma unroll
     for (int k = 0; k < kVecs; ++k) cur[k] = nxt[k];
   }
-}
-
-template <int CB>
-__global__ void __launch_bounds__(kThreads)
-direct_scan_blocks_kernel(const uint8_t* __restrict__ codes,    // (P, part_pad, CB)
-                          const int32_t* __restrict__ pair_part,// (QA,)
-                          const float* __restrict__ tlo,        // (QA, 16*CB)
-                          const float* __restrict__ thi,
-                          const int32_t* __restrict__ sizes,    // (QA,) real codes
-                          float* __restrict__ out,              // (QA, part_pad)
-                          float* __restrict__ mins,             // (QA, part_pad / 32)
-                          int part_pad) {
-  __shared__ float s_lo[CB * 16];  // [b][j]
-  __shared__ float s_hi[CB * 16];
-  const int pair = blockIdx.x;
-  const size_t t = static_cast<size_t>(pair) * 16 * CB;
-  for (int i = threadIdx.x; i < 16 * CB; i += kThreads) {
-    const int j = i / CB, b = i % CB;
-    s_lo[b * 16 + j] = tlo[t + i];
-    s_hi[b * 16 + j] = thi[t + i];
-  }
-  __syncthreads();
-  const int code = blockIdx.y * kThreads + threadIdx.x;  // part_pad % kThreads == 0
-  float d = kMaskBig;
-  if (code < sizes[pair]) {
-    uint32_t w[CB / 4];
-    CodeBytes<CB>::load(
-        codes + (static_cast<size_t>(pair_part[pair]) * part_pad + code) * CB, w);
-    d = adc_code<CB, 1, 16>(w, s_lo, s_hi);
-  }
-  out[static_cast<size_t>(pair) * part_pad + code] = d;
-  float m = d;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) mins[static_cast<size_t>(pair) * (part_pad / 32) + code / 32] = m;
 }
 
 }  // namespace
@@ -418,28 +351,6 @@ extern "C" int qadc_rows_adc(const void* codes, const void* row_ids, const void*
     return static_cast<int>(launch_rows_adc<16>(codes, row_ids, pair_ids, tlo, thi, out,
                                                 a_count, s));
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The replaced M2 (A/B arm): the same arguments and result.
-extern "C" int qadc_rows_adc_cached(const void* codes, const void* row_ids, const void* pair_ids,
-                                    const void* tlo, const void* thi, void* out, int a_count,
-                                    int cb, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const long long threads = static_cast<long long>(a_count) * (128 / cb);
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* r = static_cast<const int32_t*>(row_ids);
-  const auto* p = static_cast<const int32_t*>(pair_ids);
-  const auto* lo = static_cast<const float*>(tlo);
-  const auto* hi = static_cast<const float*>(thi);
-  auto* o = static_cast<float*>(out);
-  if (cb == 8)
-    rows_adc_cached_kernel<8><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
-  else if (cb == 16)
-    rows_adc_cached_kernel<16><<<blocks, kThreads, 0, s>>>(c, r, p, lo, hi, o, a_count);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // M3: rounds (>= 1) of 1024 codes a block; part_pad % 256 == 0.
@@ -465,28 +376,6 @@ extern "C" int qadc_direct_scan(const void* codes, const void* pair_part, const 
   else if (cb == 16)
     direct_scan_kernel<16><<<blocks, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad, chunks,
                                                        rounds);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The replaced M3 (A/B arm): the same arguments, less rounds, and result.
-extern "C" int qadc_direct_scan_blocks(const void* codes, const void* pair_part, const void* tlo,
-                                       const void* thi, const void* sizes, void* out, void* mins,
-                                       int qa, int part_pad, int cb, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(qa, part_pad / kThreads);
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* pp = static_cast<const int32_t*>(pair_part);
-  const auto* lo = static_cast<const float*>(tlo);
-  const auto* hi = static_cast<const float*>(thi);
-  const auto* sz = static_cast<const int32_t*>(sizes);
-  auto* o = static_cast<float*>(out);
-  auto* m = static_cast<float*>(mins);
-  if (cb == 8)
-    direct_scan_blocks_kernel<8><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
-  else if (cb == 16)
-    direct_scan_blocks_kernel<16><<<grid, kThreads, 0, s>>>(c, pp, lo, hi, sz, o, m, part_pad);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,8 @@
 //   benchmarks/kernel_lab.py:run_variant  acc_only / expand_only / min_only / copy
 //   benchmarks/diag_direct.py:main        is a 0/1 selector product exact in a kernel
 // (benchmarks/ab_tq.py:lut_scan_tq, the A/B of two formulations, needs no
-// kernel of its own here: it runs the mma kernel against the lookup kernels.)
+// kernel of its own here: kernels/scan_lab.py:ab_scans runs the int8 scan's
+// engines against each other.)
 //
 // qadc_scan_lab runs flat_scan_mma_kernel at CB = 8 with a mode, a subset of
 // {expand = 1, mma = 2, min = 4}: 7 is the production scan ("full"), 6 a

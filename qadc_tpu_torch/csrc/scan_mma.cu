@@ -6,14 +6,14 @@
 // window == cpr (flat_scan_mma_kernel) and lut_scan_grouped_tq /
 // lut_scan_grouped_prefetch with acc_dtype_name "int32"
 // (grouped_scan_mma_kernel), which compute the scan the same way on the
-// TPU's matrix unit. The output contracts are those of the lookup kernels
-// in flat_scan.cu and grouped_scan.cu, to the letter: per (query or pair,
-// storage row) the minimum over the row's real codes of the int32 sum of the
-// 2*CB selected table entries, no 127 saturation; 1 << 30 for a row with no
-// real code (flat: at or past n; grouped: at or past the partition's size);
-// with rows_out (flat only) the code index of the minimum, ties to the
-// lower code, -1 for such a row. The float32 instantiations stay on the
-// lookup kernels: their sums must keep rows_adc's order bit for bit.
+// TPU's matrix unit. The output contracts, to the letter: per (query or
+// pair, storage row) the minimum over the row's real codes of the int32 sum
+// of the 2*CB selected table entries, no 127 saturation; 1 << 30 for a row
+// with no real code (flat: at or past n; grouped: at or past the partition's
+// size); with rows_out (flat only) the code index of the minimum, ties to
+// the lower code, -1 for such a row. Float32 tables stay on lookup kernels
+// (flat_scan.cu, flat_scan_qm.cuh, grouped_scan_sm.cu): their sums must keep
+// rows_adc's order bit for bit.
 //
 // What bounds them on the H100: a one-lookup-per-lane scan is bound by
 // shared-memory lookups, 32 a clock an SM (2.05 G lookups at 128 queries x

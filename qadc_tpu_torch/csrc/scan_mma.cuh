@@ -8,7 +8,7 @@
 // selects one entry of each table, and the int32 sum of the selected entries
 // is the dot product of that row with the code's 0/1 one-hot column. int8
 // entries times 0/1 summed in int32 are exact in any order, so the product
-// gives the lookup kernels' sums bit for bit.
+// gives the sums of the looked-up entries bit for bit.
 //
 // The product: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, A = tables
 // (16 queries x 32 k), B = one-hot (32 k x 8 codes), C = sums (16 x 8).

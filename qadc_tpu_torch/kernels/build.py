@@ -31,29 +31,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argument types; every pointer and the stream are c_void_p.
 SIGNATURES = {
-    # codes, tables, group_part, slot_pair, group_sizes, out,
-    # gcap, group_size, rpp, cb, f32, stream
-    "qadc_grouped_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # codes, tables, group_part, slot_pair, group_sizes, out_min, out_idx,
-    # gcap, group_size, rpp, m, stream
-    "qadc_grouped_scan8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, row_ids, pair_ids, tlo, thi, out, a_count, cb, stream
     "qadc_rows_adc": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "qadc_rows_adc_cached": (_P, _P, _P, _P, _P, _P, _I, _I, _P),  # as qadc_rows_adc
     # codes, pair_part, tlo, thi, sizes, out, mins, qa, part_pad, cb, rounds, stream
     "qadc_direct_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # as qadc_direct_scan, less rounds
-    "qadc_direct_scan_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, f32, stream
-    "qadc_flat_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, stream
+    "qadc_flat_scan": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, tables, out_min, out_idx, n_blocks, q_count, n, m, stream
     "qadc_flat_scan8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
-    # cb, f32, transpose_out, stream
-    "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # cb, transpose_out, stream
+    "qadc_flat_scan_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, n_pad, q_count, n, block_n, window, cb, stream
     "qadc_flat_scan_window_regs": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "qadc_flat_scan_window_regs_single": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, rows_out (or null), n_pad, q_count, n, block_n, window,
     # cb, chunk, transpose_out, stream
     "qadc_flat_scan_window_qm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -90,9 +80,7 @@ SIGNATURES = {
     # gcap, group_size, rpp, m, stream
     "qadc_grouped_scan8_sm": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the lab entries: as above with the mode in place of cb / m
-    "qadc_grouped_scan_lab": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qadc_grouped_scan_sm_lab": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "qadc_grouped_scan8_lab": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qadc_grouped_scan8_sm_lab": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 

@@ -9,35 +9,20 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          kernel of grouped_scan_sm.cu)
   grouped_scan8 (5+6) <- lut_scan8_grouped_tq / lut_scan8_grouped_prefetch:
                          the slot-minor kernel of grouped_scan8_sm.cu
-  grouped_scan_f32_lookup, grouped_scan8_lookup: the float M1 and the 8-bit
-                         grouped scan by the kernels of grouped_scan.cu and
-                         grouped_scan8.cu, kept for the A/B against the
-                         slot-minor kernels
   rows_adc      (M2)  <- rows_adc_accumulate (+ ivf.rows_adc's selector matmul):
                          tiles of ROWS_ADC_TILE entries, each run of equal
                          pair ids' tables staged once in shared memory
-  rows_adc_cached: M2 by the kernel the staged one replaced (tables read
-                         through L1), kept for the A/B
   direct_scan   (M3)  <- rows_adc_grouped_prefetch (the direct path): items of
                          a pair and a chunk of codes, the tables staged once
                          an item (direct_scan_rounds)
-  direct_scan_blocks: M3 by the kernel the chunked one replaced (a block of
-                         256 codes), kept for the A/B
   flat_scan     (7+8) <- lut_scan_tq / lut_scan_reduce (flat 4-bit), int8
                          tables (scan_wgmma.cu from WGMMA_MIN_QUERIES
                          queries, scan_mma.cu below) or float32 (the
                          query-minor kernel of flat_scan_qm.cuh from
                          QUERY_MINOR_MIN_QUERIES queries, flat_scan.cu below)
-  grouped_scan_lookup, flat_scan_lookup: the int8 scans by the lookup
-                         kernels (one shared-memory lookup a nibble), kept
-                         for the A/B against the tensor-core kernels
   flat_scan8    (9)   <- lut_scan8_reduce (flat 8-bit): the query-minor
                          kernel of flat_scan8_qm.cuh from
                          QUERY_MINOR_MIN_QUERIES8 queries, flat_scan8.cu below
-  flat_scan_f32_lookup, flat_scan8_lookup: the float 4-bit and the 8-bit
-                         flat scans by the kernels of flat_scan.cu and
-                         flat_scan8.cu at any batch, kept for the A/B against
-                         the query-minor kernels
   flat_scan_window      (8, 8v, 8w) <- lut_scan_reduce at any (block_n,
                          window), its accumulate variants, and (through
                          lut_scan_topk_int8) its screened top-r: int8
@@ -46,15 +31,16 @@ Kernels written by hand in CUDA C++ under `qadc_tpu_torch/csrc/`:
                          the query-minor kernel of flat_scan_window_qm.cu
                          from WINDOW_QUERY_MINOR_MIN_QUERIES queries on, the
                          lookup kernel of flat_scan_window.cu below
-  flat_scan_window_lookup, flat_scan_window_f32_lookup: the int8 and the
-                         float32 window scans by that lookup kernel at any
-                         batch, kept for the A/B
   flat_scan_window_regs (10) <- lut_scan_vpu_reduce: the same minima by
                          another engine, tables in registers, four lookups
                          a byte permute (flat_scan_window_perm4.cu)
-  flat_scan_window_regs_single: the same by the register kernel it replaced
-                         (flat_scan_window.cu, one lookup a nibble), kept for
-                         the A/B
+
+flat_scan_f32_lookup, flat_scan8_lookup and flat_scan_window_f32_lookup run
+at any batch the kernel that flat_scan (float32 tables), flat_scan8 and
+flat_scan_window (float32 tables) run below a query-count threshold
+(flat_scan.cu, flat_scan8.cu, flat_scan_window.cu). Each of the two kernels
+wins on one side of its threshold, which the dispatch picks from the query
+count; these entries are how the thresholds are measured.
 
 Each wrapper checks its arguments, then dispatches on the device of the
 tensors it was given: on the CPU it runs the plain PyTorch version beside
@@ -148,26 +134,14 @@ WINDOW_QUERY_MINOR_MIN_QUERIES = 28
 GROUPED_WINDOW_SLOTS = 4
 
 # Launches of each kernel since the last reset_launch_counts();
-# grouped_scan_f32 and flat_scan_f32 are M1 and flat_scan with float tables,
-# grouped_scan_lookup and flat_scan_lookup the int8 scans by the lookup
-# kernels, grouped_scan_f32_lookup, grouped_scan8_lookup, flat_scan_f32_lookup
-# and flat_scan8_lookup the float and 8-bit scans by the kernels the
-# slot-minor and query-minor ones replaced, rows_adc_cached M2 by the kernel
-# the staged one replaced, direct_scan_blocks M3 by the kernel the chunked
-# one replaced, flat_scan_window_f32 the window scan with float tables,
-# flat_scan_window_lookup and flat_scan_window_f32_lookup its int8 and float
-# scans by the kernel the tensor-core and query-minor ones replaced,
-# flat_scan_window_regs_single kernel 10 by the kernel the four-lookup one
-# replaced, scan_lab, selector_sum and empty_kernel the instruments of
-# kernels/scan_lab.py.
+# grouped_scan_f32, flat_scan_f32 and flat_scan_window_f32 are M1, flat_scan
+# and flat_scan_window with float tables, the *_lookup keys the entries that
+# force the kernel below a threshold, scan_lab, selector_sum and empty_kernel
+# the instruments of kernels/scan_lab.py.
 launches = {"grouped_scan": 0, "grouped_scan_f32": 0, "grouped_scan8": 0,
-            "rows_adc": 0, "rows_adc_cached": 0, "direct_scan": 0, "direct_scan_blocks": 0,
-            "flat_scan": 0, "flat_scan_f32": 0,
+            "rows_adc": 0, "direct_scan": 0, "flat_scan": 0, "flat_scan_f32": 0,
             "flat_scan8": 0, "flat_scan_window": 0, "flat_scan_window_f32": 0,
-            "flat_scan_window_lookup": 0, "flat_scan_window_f32_lookup": 0,
-            "flat_scan_window_regs": 0, "flat_scan_window_regs_single": 0,
-            "grouped_scan_lookup": 0, "grouped_scan_f32_lookup": 0,
-            "grouped_scan8_lookup": 0, "flat_scan_lookup": 0,
+            "flat_scan_window_f32_lookup": 0, "flat_scan_window_regs": 0,
             "flat_scan_f32_lookup": 0, "flat_scan8_lookup": 0, "scan_lab": 0,
             "selector_sum": 0, "empty_kernel": 0}
 
@@ -281,65 +255,27 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
     storage rows the scan walks (grouped_scan_rows summed; on a card the
     kernels' own sum, a 0-d device tensor read when the recording closes).
     """
-    f32 = _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=True)
-    if codes.device.type == "cpu":
-        if not f32 and recording_open():
-            count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, codes.shape[1],
-                                                 256 // tables.shape[1]).sum())
-        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
-    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
-                                "grouped_scan_f32" if f32 else "grouped_scan")
-
-
-def grouped_scan_lookup(codes, tables, group_part, slot_pair, group_sizes):
-    """grouped_scan's int8 result by the lookup kernel (grouped_scan.cu): the
-    same arguments (int8 tables only) and the same minima, bit for bit. An
-    A/B instrument: no search path calls it."""
-    _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=False)
-    if codes.device.type == "cpu":
-        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
-    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
-                                "grouped_scan_lookup")
-
-
-def grouped_scan_f32_lookup(codes, tables, group_part, slot_pair, group_sizes):
-    """grouped_scan's float32 result by the row-a-thread kernel
-    (grouped_scan.cu) that the slot-minor one replaced: the same arguments
-    (float32 tables only) and the same minima, bit for bit. An A/B
-    instrument: no search path calls it."""
-    if not _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok=True):
-        raise TypeError(f"tables must be torch.float32, got {tables.dtype}")
-    if codes.device.type == "cpu":
-        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
-    return _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes,
-                                "grouped_scan_f32_lookup")
-
-
-def _check_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, f32_ok: bool) -> bool:
-    """Argument checks of M1. Returns whether the tables are float32."""
     _check_groups(codes, group_part, slot_pair, group_sizes)
-    f32 = f32_ok and getattr(tables, "dtype", None) == torch.float32
-    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, codes.device)
-    _, m, k = tables.shape
+    dev = codes.device
+    f32 = getattr(tables, "dtype", None) == torch.float32
+    _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
+    qa, m, k = tables.shape
     if k != 16 or m not in (16, 32):
         raise ValueError(f"need (QA, 16|32, 16) tables, got {tuple(tables.shape)}")
-    return f32
-
-
-def _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, kernel: str):
-    """Launch M1 on checked CUDA tensors. `kernel` is its key in `launches`:
-    grouped_scan runs the tensor-core kernel, grouped_scan_f32 the slot-minor
-    one, the _lookup arms the lookup kernel."""
-    dev = codes.device
+    if dev.type == "cpu":
+        if not f32 and recording_open():
+            count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, codes.shape[1],
+                                                 256 // m).sum())
+        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
     _require_cuda(dev, codes, tables)
-    qa, m, _ = tables.shape
     gcap, g = slot_pair.shape
     rpp = codes.shape[1]
-    f32 = tables.dtype == torch.float32
     out = torch.empty((qa, rpp), dtype=tables.dtype if f32 else torch.int32, device=dev)
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, out)]
-        if kernel == "grouped_scan":
+        if f32:
+            _launch("qadc_grouped_scan_sm", dev, *ptrs, gcap, g, rpp, m // 2)
+        else:
             # The plan's scratch (csrc/scan_mma.cu): packed live pairs, their
             # counts, the prefix of the groups' costs.
             plan = (torch.empty((gcap, g), dtype=torch.int32, device=dev),
@@ -348,11 +284,7 @@ def _launch_grouped_scan(codes, tables, group_part, slot_pair, group_sizes, kern
             _launch("qadc_grouped_scan_mma", dev, *ptrs, *(t.data_ptr() for t in plan),
                     gcap, g, rpp, m // 2, grouped_mma_tiles(m // 2, qa, codes.shape[0]))
             count("scan.rows", plan[2][gcap + 1])
-        elif kernel == "grouped_scan_f32":
-            _launch("qadc_grouped_scan_sm", dev, *ptrs, gcap, g, rpp, m // 2)
-        else:
-            _launch("qadc_grouped_scan", dev, *ptrs, gcap, g, rpp, m // 2, int(f32))
-        launches[kernel] += 1
+        launches["grouped_scan_f32" if f32 else "grouped_scan"] += 1
     return out
 
 
@@ -482,20 +414,6 @@ def grouped_scan8(codes, tables, group_part, slot_pair, group_sizes):
       the partition-local code index of the minimum (ties to the lower
       code); +inf and -1 for a window with no real code.
     """
-    return _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes, "grouped_scan8")
-
-
-def grouped_scan8_lookup(codes, tables, group_part, slot_pair, group_sizes):
-    """grouped_scan8's result by the window-a-thread kernel (grouped_scan8.cu)
-    that the slot-minor one replaced: the same arguments and the same minima
-    and indices, bit for bit. An A/B instrument: no search path calls it."""
-    return _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes,
-                          "grouped_scan8_lookup")
-
-
-def _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes, kernel: str):
-    """grouped_scan8 by `kernel`, its key in `launches`: grouped_scan8 runs the
-    slot-minor kernel, grouped_scan8_lookup the window-a-thread one."""
     dev = codes.device
     _check_groups(codes, group_part, slot_pair, group_sizes)
     _check(tables, "tables", torch.bfloat16, 3, dev)
@@ -514,9 +432,8 @@ def _grouped_scan8(codes, tables, group_part, slot_pair, group_sizes, kernel: st
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in
                 (codes, tables, group_part, slot_pair, group_sizes, mins, idx)]
-        entry = "qadc_grouped_scan8_sm" if kernel == "grouped_scan8" else "qadc_grouped_scan8"
-        _launch(entry, dev, *ptrs, gcap, g, rpp, m)
-        launches[kernel] += 1
+        _launch("qadc_grouped_scan8_sm", dev, *ptrs, gcap, g, rpp, m)
+        launches["grouped_scan8"] += 1
     return mins, idx
 
 
@@ -680,47 +597,26 @@ def rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
       (A, cpr) float32 distances of the cpr codes of each row, summed in
       float32 over b = 0..cb-1, low nibble then high.
     """
-    if _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
-        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
-    return _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, "rows_adc")
-
-
-def rows_adc_cached(codes_rows, row_ids, pair_ids, tlo, thi):
-    """rows_adc's result by the kernel the staged one replaced (a thread a
-    code, the tables read through L1): the same arguments and distances, bit
-    for bit. An A/B instrument: no search path calls it."""
-    if _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi):
-        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
-    return _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, "rows_adc_cached")
-
-
-def _check_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi) -> bool:
-    """Argument checks of M2. Returns whether the tensors lie on the CPU."""
     dev = codes_rows.device
     _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
     _check(row_ids, "row_ids", torch.int32, 1, dev)
     _check(pair_ids, "pair_ids", torch.int32, 1, dev)
     _check(tlo, "tlo", torch.float32, 2, dev)
     _check(thi, "thi", torch.float32, 2, dev)
-    _table_code_bytes(tlo.shape[1])
+    cb = _table_code_bytes(tlo.shape[1])
     if codes_rows.shape[1] != 128 or thi.shape != tlo.shape:
         raise ValueError("need (R, 128) codes and equal tlo/thi shapes")
     if row_ids.shape != pair_ids.shape:
         raise ValueError("row_ids and pair_ids must have one entry per row")
-    return dev.type == "cpu"
-
-
-def _launch_rows_adc(codes_rows, row_ids, pair_ids, tlo, thi, kernel: str):
-    """Launch M2 on checked CUDA tensors; `kernel` is its key in `launches`."""
-    dev = codes_rows.device
+    if dev.type == "cpu":
+        return rows_adc_plain(codes_rows, row_ids, pair_ids, tlo, thi)
     _require_cuda(dev, codes_rows, tlo, thi)
-    cb = tlo.shape[1] // 16
     a = row_ids.shape[0]
     out = torch.empty((a, 128 // cb), dtype=torch.float32, device=dev)
     if a:
         ptrs = [t.data_ptr() for t in (codes_rows, row_ids, pair_ids, tlo, thi, out)]
-        _launch("qadc_" + kernel, dev, *ptrs, a, cb)
-        launches[kernel] += 1
+        _launch("qadc_rows_adc", dev, *ptrs, a, cb)
+        launches["rows_adc"] += 1
     return out
 
 
@@ -847,23 +743,6 @@ def direct_scan(codes, pair_part, tlo, thi, sizes):
       (dists (QA, part_pad) float32 in code order, MASK_BIG at or past the
       size; mins (QA, part_pad / TILE) float32 minima of TILE-code tiles).
     """
-    if _check_direct_scan(codes, pair_part, tlo, thi, sizes):
-        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
-    return _launch_direct_scan(codes, pair_part, tlo, thi, sizes, "direct_scan")
-
-
-def direct_scan_blocks(codes, pair_part, tlo, thi, sizes):
-    """direct_scan's result by the kernel the chunked one replaced (a block
-    of 256 codes, its pair's tables staged in every block): the same
-    arguments and result, bit for bit. An A/B instrument: no search path
-    calls it."""
-    if _check_direct_scan(codes, pair_part, tlo, thi, sizes):
-        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
-    return _launch_direct_scan(codes, pair_part, tlo, thi, sizes, "direct_scan_blocks")
-
-
-def _check_direct_scan(codes, pair_part, tlo, thi, sizes) -> bool:
-    """Argument checks of M3. Returns whether the tensors lie on the CPU."""
     dev = codes.device
     _check(codes, "codes", torch.uint8, 3, dev)
     _check(pair_part, "pair_part", torch.int32, 1, dev)
@@ -878,26 +757,16 @@ def _check_direct_scan(codes, pair_part, tlo, thi, sizes) -> bool:
                          f"got {tuple(codes.shape)}")
     if thi.shape != tlo.shape or tlo.shape[0] != qa or sizes.shape[0] != qa:
         raise ValueError("pair_part, tlo, thi and sizes disagree on QA")
-    return dev.type == "cpu"
-
-
-def _launch_direct_scan(codes, pair_part, tlo, thi, sizes, kernel: str):
-    """Launch M3 on checked CUDA tensors; `kernel` is its key in `launches`."""
-    dev = codes.device
+    if dev.type == "cpu":
+        return direct_scan_plain(codes, pair_part, tlo, thi, sizes)
     _require_cuda(dev, codes)
-    cb = tlo.shape[1] // 16
-    part_pad = codes.shape[1] * (128 // cb)
-    qa = pair_part.shape[0]
     out = torch.empty((qa, part_pad), dtype=torch.float32, device=dev)
     mins = torch.empty((qa, part_pad // TILE), dtype=torch.float32, device=dev)
     if qa and part_pad:
         ptrs = [t.data_ptr() for t in (codes, pair_part, tlo, thi, sizes, out, mins)]
-        if kernel == "direct_scan":
-            rounds = direct_scan_rounds(qa, part_pad, _sm_count(dev))
-            _launch("qadc_direct_scan", dev, *ptrs, qa, part_pad, cb, rounds)
-        else:
-            _launch("qadc_direct_scan_blocks", dev, *ptrs, qa, part_pad, cb)
-        launches[kernel] += 1
+        rounds = direct_scan_rounds(qa, part_pad, _sm_count(dev))
+        _launch("qadc_direct_scan", dev, *ptrs, qa, part_pad, cb, rounds)
+        launches["direct_scan"] += 1
     return out, mins
 
 
@@ -997,28 +866,19 @@ def flat_scan(codes_rows, tables, n: int, with_rows: bool = False):
       (ties to the lower code, -1 for a row with no real code), or None
       without with_rows.
     """
-    f32, n = _check_flat_scan(codes_rows, tables, n, f32_ok=True)
+    f32, n = _check_flat_scan(codes_rows, tables, n)
     if codes_rows.device.type == "cpu":
         return flat_scan_plain(codes_rows, tables, n, with_rows)
     return _launch_flat_scan(codes_rows, tables, n, with_rows,
                              "flat_scan_f32" if f32 else "flat_scan")
 
 
-def flat_scan_lookup(codes_rows, tables, n: int, with_rows: bool = False):
-    """flat_scan's int8 result by the lookup kernel (flat_scan.cu): the same
-    arguments (int8 tables only) and the same minima and indices, bit for
-    bit. An A/B instrument: no search path calls it."""
-    _, n = _check_flat_scan(codes_rows, tables, n, f32_ok=False)
-    if codes_rows.device.type == "cpu":
-        return flat_scan_plain(codes_rows, tables, n, with_rows)
-    return _launch_flat_scan(codes_rows, tables, n, with_rows, "flat_scan_lookup")
-
-
 def flat_scan_f32_lookup(codes_rows, tables, n: int, with_rows: bool = False):
     """flat_scan's float32 result by the row-a-thread kernel (flat_scan.cu) at
     any batch: the same arguments (float32 tables only) and the same minima
-    and indices, bit for bit. An A/B instrument: no search path calls it."""
-    f32, n = _check_flat_scan(codes_rows, tables, n, f32_ok=True)
+    and indices, bit for bit. flat_scan runs that kernel below
+    QUERY_MINOR_MIN_QUERIES queries; this entry measures that threshold."""
+    f32, n = _check_flat_scan(codes_rows, tables, n)
     if not f32:
         raise TypeError(f"tables must be torch.float32, got {tables.dtype}")
     if codes_rows.device.type == "cpu":
@@ -1026,11 +886,11 @@ def flat_scan_f32_lookup(codes_rows, tables, n: int, with_rows: bool = False):
     return _launch_flat_scan(codes_rows, tables, n, with_rows, "flat_scan_f32_lookup")
 
 
-def _check_flat_scan(codes_rows, tables, n, f32_ok: bool) -> tuple[bool, int]:
+def _check_flat_scan(codes_rows, tables, n) -> tuple[bool, int]:
     """Argument checks of flat_scan. Returns (float32 tables, n clipped)."""
     dev = codes_rows.device
     _check(codes_rows, "codes_rows", torch.uint8, 2, dev)
-    f32 = f32_ok and getattr(tables, "dtype", None) == torch.float32
+    f32 = getattr(tables, "dtype", None) == torch.float32
     _check(tables, "tables", torch.float32 if f32 else torch.int8, 3, dev)
     _, m, k = tables.shape
     if codes_rows.shape[1] != 128 or k != 16 or m not in (16, 32):
@@ -1044,12 +904,12 @@ def _launch_flat_scan(codes_rows, tables, n: int, with_rows: bool, kernel: str):
     `launches`: flat_scan runs a tensor-core kernel, chosen by the batch
     (with_rows too: they take the minimum of (sum << 4) | code_in_row),
     flat_scan_f32 the query-minor kernel from QUERY_MINOR_MIN_QUERIES queries
-    on, and the others (and flat_scan_f32 below that) the lookup kernel."""
+    on and the lookup kernel below, flat_scan_f32_lookup the lookup kernel."""
     dev = codes_rows.device
     _require_cuda(dev, codes_rows, tables)
     q, m, _ = tables.shape
     r_count = codes_rows.shape[0]
-    f32 = kernel in ("flat_scan_f32", "flat_scan_f32_lookup")
+    f32 = tables.dtype == torch.float32
     out = torch.empty((q, r_count), dtype=tables.dtype if f32 else torch.int32, device=dev)
     idx = torch.empty((q, r_count), dtype=torch.int32, device=dev) if with_rows else None
     if q and r_count:
@@ -1062,7 +922,7 @@ def _launch_flat_scan(codes_rows, tables, n: int, with_rows: bool, kernel: str):
             _launch("qadc_flat_scan_qm", dev, *ptrs, r_count, q, n, m // 2,
                     flat_scan_chunk(q, m))
         else:
-            _launch("qadc_flat_scan", dev, *ptrs, r_count, q, n, m // 2, int(f32))
+            _launch("qadc_flat_scan", dev, *ptrs, r_count, q, n, m // 2)
         launches[kernel] += 1
     return out, idx
 
@@ -1384,32 +1244,14 @@ def flat_scan_window(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
                                     "flat_scan_window_f32" if f32 else "flat_scan_window")
 
 
-def flat_scan_window_lookup(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
-                            window: int = DEFAULT_WINDOW, with_rows: bool = False,
-                            transpose_out: bool = False, variant: str = "int8"):
-    """flat_scan_window's int8 result by the lookup kernel the tensor-core
-    one replaced (csrc/flat_scan_window.cu: a thread a (query, window), the
-    code block staged in slot order): the same arguments (int8 tables only)
-    and the same minima and ids, bit for bit. An A/B instrument: no search
-    path calls it."""
-    f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
-                                                with_rows, transpose_out, variant)
-    if f32:
-        raise TypeError(f"tables must be torch.int8, got {tables.dtype}")
-    if codes_rows.device.type == "cpu":
-        return flat_scan_window_plain(codes_rows, tables, n, block_n, window, with_rows,
-                                      transpose_out)
-    return _launch_flat_scan_window(codes_rows, tables, n, n_pad, cb, block_n, window,
-                                    with_rows, transpose_out, "flat_scan_window_lookup")
-
-
 def flat_scan_window_f32_lookup(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
                                 window: int = DEFAULT_WINDOW, with_rows: bool = False,
                                 transpose_out: bool = False, variant: str = "int8"):
-    """flat_scan_window's float32 result by the lookup kernel the
-    query-minor one replaced (csrc/flat_scan_window.cu) at any batch: the
-    same arguments (float32 tables only) and the same minima and ids, bit for
-    bit. An A/B instrument: no search path calls it."""
+    """flat_scan_window's float32 result by the lookup kernel of
+    csrc/flat_scan_window.cu at any batch: the same arguments (float32 tables
+    only) and the same minima and ids, bit for bit. flat_scan_window runs that
+    kernel below WINDOW_QUERY_MINOR_MIN_QUERIES queries; this entry measures
+    that threshold."""
     f32, cb, n, n_pad = _check_flat_scan_window(codes_rows, tables, n, block_n, window,
                                                 with_rows, transpose_out, variant)
     if not f32:
@@ -1438,12 +1280,12 @@ def _launch_flat_scan_window(codes_rows, tables, n: int, n_pad: int, cb: int, bl
     """Launch a window scan on checked CUDA tensors. `kernel` is its key in
     `launches`: flat_scan_window runs the warpgroup kernel of scan_wgmma.cu,
     flat_scan_window_f32 the query-minor kernel of flat_scan_window_qm.cu from
-    WINDOW_QUERY_MINOR_MIN_QUERIES queries on, and the others (and
-    flat_scan_window_f32 below that) the lookup kernel of
-    flat_scan_window.cu."""
+    WINDOW_QUERY_MINOR_MIN_QUERIES queries on and the lookup kernel of
+    flat_scan_window.cu below, flat_scan_window_f32_lookup that lookup
+    kernel."""
     dev = codes_rows.device
     _require_cuda(dev, codes_rows, tables)
-    f32 = kernel in ("flat_scan_window_f32", "flat_scan_window_f32_lookup")
+    f32 = tables.dtype == torch.float32
     q, c = tables.shape[0], n_pad // window
     out = torch.empty((q, c) if transpose_out else (c, q),
                       dtype=tables.dtype if f32 else torch.int32, device=dev)
@@ -1459,7 +1301,7 @@ def _launch_flat_scan_window(codes_rows, tables, n: int, n_pad: int, cb: int, bl
                     flat_scan_chunk(q, 2 * cb), int(transpose_out))
         else:
             _launch("qadc_flat_scan_window", dev, *ptrs, n_pad, q, n, block_n, window, cb,
-                    int(f32), int(transpose_out))
+                    int(transpose_out))
         launches[kernel] += 1
     return out, idx
 
@@ -1593,21 +1435,6 @@ def flat_scan_window_regs(codes_rows, tables, n: int, block_n: int = DEFAULT_BLO
     lut_scan_vpu_reduce: an A/B instrument). Its plain version is
     flat_scan_window_plain.
     """
-    return _flat_scan_window_regs(codes_rows, tables, n, block_n, window,
-                                  "flat_scan_window_regs")
-
-
-def flat_scan_window_regs_single(codes_rows, tables, n: int, block_n: int = DEFAULT_BLOCK_N,
-                                 window: int = DEFAULT_WINDOW):
-    """flat_scan_window_regs' result by the register kernel the four-lookup
-    one replaced (csrc/flat_scan_window.cu:flat_scan_window_regs_kernel: one
-    lookup a nibble, two permutes and a select): the same arguments and
-    minima, bit for bit. An A/B instrument."""
-    return _flat_scan_window_regs(codes_rows, tables, n, block_n, window,
-                                  "flat_scan_window_regs_single")
-
-
-def _flat_scan_window_regs(codes_rows, tables, n, block_n, window, kernel: str):
     cb, n, n_pad = _check_window_scan(codes_rows, tables, n, block_n, window, f32_ok=False)
     dev = codes_rows.device
     if dev.type == "cpu":
@@ -1616,9 +1443,9 @@ def _flat_scan_window_regs(codes_rows, tables, n, block_n, window, kernel: str):
     q, c = tables.shape[0], n_pad // window
     out = torch.empty((c, q), dtype=torch.int32, device=dev)
     if q and c:
-        _launch(f"qadc_{kernel}", dev, codes_rows.data_ptr(), tables.data_ptr(),
+        _launch("qadc_flat_scan_window_regs", dev, codes_rows.data_ptr(), tables.data_ptr(),
                 out.data_ptr(), n_pad, q, n, block_n, window, cb)
-        launches[kernel] += 1
+        launches["flat_scan_window_regs"] += 1
     return out
 
 
@@ -1885,7 +1712,8 @@ def flat_scan8(codes_rows, tables, n: int):
 def flat_scan8_lookup(codes_rows, tables, n: int):
     """flat_scan8's result by the code-a-thread kernel (flat_scan8.cu) at any
     batch: the same arguments and the same minima and indices, bit for bit.
-    An A/B instrument: no search path calls it."""
+    flat_scan8 runs that kernel below QUERY_MINOR_MIN_QUERIES8 queries; this
+    entry measures that threshold."""
     return _flat_scan8(codes_rows, tables, n, "flat_scan8_lookup")
 
 

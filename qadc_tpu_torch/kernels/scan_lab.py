@@ -5,12 +5,10 @@ The JAX package designed its TPU scans with four scratch scripts; each has
 its counterpart here, over the tensor-core scan of csrc/scan_mma.cuh:
 
   benchmarks/ab_tq.py:lut_scan_tq       A/B of two formulations of one scan
-      -> `ab_scans`: lut_scan.flat_scan and flat_scan_window (int8 one-hot
-         x table mma) against flat_scan_lookup and flat_scan_window_lookup
-         (shared-memory lookups) and the two register engines,
-         flat_scan_window_regs (four lookups a byte permute) and
-         flat_scan_window_regs_single (one a nibble), minima equal bit for
-         bit
+      -> `ab_scans`: lut_scan.flat_scan (int8 one-hot x table mma.sync or
+         wgmma, by batch) against flat_scan_window (wgmma over window-major
+         columns) and the register engine flat_scan_window_regs (four
+         lookups a byte permute), minima equal bit for bit
   benchmarks/ab_tq_ablate.py:scan       where the time outside the matrix unit goes
       -> `scan_lab` modes full / const_onehot / no_mma / no_min, of the
          mma.sync kernel and (wg_*) of the warpgroup kernel
@@ -18,7 +16,7 @@ its counterpart here, over the tensor-core scan of csrc/scan_mma.cuh:
       -> `scan_lab` modes copy / expand_only / acc_only / min_only (and
          wg_skeleton / wg_expand_only / wg_acc_only / wg_min_only)
   benchmarks/diag_direct.py:main        is a selector product in a kernel exact
-      -> `exactness_probe` (the int8 product against the lookup kernel over
+      -> `exactness_probe` (the int8 product against the plain version over
          adversarial tables) and `selector_sum` (the float32 0/1 selector sum)
 
 Every mode is one launch of a kernel of csrc/scan_lab.cu; `check` holds each
@@ -33,9 +31,8 @@ the instructions of a compiled kernel's innermost loops by pipe (the register
 engine's instructions a lookup), `sass_loop_ops` over the built library.
 
 The slot-minor grouped scans (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu)
-and the kernels they replaced (grouped_scan.cu's float instantiation,
-grouped_scan8.cu) have theirs in GROUPED_LAB_MODES (`grouped_lab`, held to
-what defines them by `check_grouped`).
+have theirs in GROUPED_LAB_MODES (`grouped_lab`, held to what defines them by
+`check_grouped`).
 """
 
 from __future__ import annotations
@@ -309,7 +306,7 @@ def adversarial_tables(m: int, q: int, seed: int, device) -> dict[str, torch.Ten
 
 def exactness_probe(codes_rows, n: int, m: int, q: int = 128, seed: int = 0,
                     scan: Callable = lut_scan.flat_scan,
-                    reference: Callable = lut_scan.flat_scan_lookup) -> dict[str, int]:
+                    reference: Callable = lut_scan.flat_scan_plain) -> dict[str, int]:
     """Entries of `scan`'s minima that differ from `reference`'s, for each
     set of adversarial_tables (0 everywhere means the product is exact)."""
     out = {}
@@ -323,9 +320,8 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
     """The engines that compute one flat int8 scan (window = cpr, so a window
     is a storage row), each as a call returning (Q, R) minima: flat_scan and
     flat_scan_window on the tensor cores (the window scan in its
-    window-major column order), and the lookup kernels of flat_scan_lookup,
-    flat_scan_window_lookup, and the register engines of
-    flat_scan_window_regs and flat_scan_window_regs_single."""
+    window-major column order), and the register engine of
+    flat_scan_window_regs."""
     cb = tables.shape[1] // 2
     block = 64 * (128 // cb)      # 64 storage rows a code block: windows are rows
     if (codes_rows.shape[0] * (128 // cb)) % block:
@@ -333,14 +329,9 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
     window = 128 // cb
     return {
         "flat_scan": lambda: lut_scan.flat_scan(codes_rows, tables, n)[0],
-        "flat_scan_lookup": lambda: lut_scan.flat_scan_lookup(codes_rows, tables, n)[0],
         "flat_scan_window": lambda: lut_scan.flat_scan_window(
             codes_rows, tables, n, block, window, transpose_out=True)[0],
-        "flat_scan_window_lookup": lambda: lut_scan.flat_scan_window_lookup(
-            codes_rows, tables, n, block, window, transpose_out=True)[0],
         "flat_scan_window_regs": lambda: lut_scan.flat_scan_window_regs(
-            codes_rows, tables, n, block, window).T,
-        "flat_scan_window_regs_single": lambda: lut_scan.flat_scan_window_regs_single(
             codes_rows, tables, n, block, window).T,
     }
 
@@ -348,27 +339,23 @@ def ab_scans(codes_rows, tables, n: int) -> dict[str, Callable]:
 # The kernel each A/B engine launches (a profiler's name filter).
 # flat_scan launches flat_scan_wgmma_kernel or flat_scan_mma_kernel by its
 # batch, flat_scan_window flat_scan_window_wgmma_kernel or _mma_kernel.
-AB_KERNELS = {"flat_scan": "mma_kernel", "flat_scan_lookup": "flat_scan_kernel",
-              "flat_scan_window": "mma_kernel",
-              "flat_scan_window_lookup": "flat_scan_window_kernel",
-              "flat_scan_window_regs": "flat_scan_window_perm4_kernel",
-              "flat_scan_window_regs_single": "flat_scan_window_regs_kernel"}
+AB_KERNELS = {"flat_scan": "mma_kernel", "flat_scan_window": "mma_kernel",
+              "flat_scan_window_regs": "flat_scan_window_perm4_kernel"}
 
 
 def check(codes_rows, tables, n: int) -> dict:
     """One launch of every instrument on 8-byte codes and (Q, 16, 16) int8
     tables, each held to what defines it. Raises if an engine of the A/B
-    disagrees with flat_scan_lookup, a full mode with the scan, or copy with
+    disagrees with flat_scan_plain, a full mode with the scan, or copy with
     the sentinel.
 
     Returns {"exactness": {"m16": {set: mismatches}, "m32": {...}},
     "selector_sum_max_rel_err": x} (the caller decides what passes).
     """
-    engines = ab_scans(codes_rows, tables, n)
-    want = engines["flat_scan_lookup"]()
-    for name, fn in engines.items():
+    want = lut_scan.flat_scan_plain(codes_rows, tables, n)[0]
+    for name, fn in ab_scans(codes_rows, tables, n).items():
         if not torch.equal(fn(), want):
-            raise AssertionError(f"A/B: {name} differs from flat_scan_lookup")
+            raise AssertionError(f"A/B: {name} differs from flat_scan_plain")
     live = torch.arange(codes_rows.shape[0], device=codes_rows.device) * 16 < n
     for mode, (bits, mt, _) in LAB_MODES.items():
         got = scan_lab(codes_rows, tables, n, mode)
@@ -404,34 +391,30 @@ def run(codes_rows, tables, n: int, timer: Callable[[Callable, str], float]) -> 
     return {**check(codes_rows, tables, n), **times(codes_rows, tables, n, timer)}
 
 
-# name -> (scan: "f32" M1 with float tables at 16x4 PQ, "u8" grouped_scan8 at
-# 8x8; kernel: "sm" the slot-minor one, "arm" the one it replaced; the
-# kernels' mode number, None for the production kernel over every slot dead;
-# what the mode keeps). f32_quad is the slot-minor M1 kernel with its tables
-# as [entry][4 slots] in place of two slot pairs: one 16-byte load a lookup,
-# and rows whose nibbles differ by 8 meet on a bank; its output is the scan's.
+# name -> (scan: the slot-minor kernel of "f32" M1 with float tables at 16x4
+# PQ, "u8" grouped_scan8 at 8x8; the kernels' mode number, None for the
+# production kernel over every slot dead; what the mode keeps). f32_quad is
+# the M1 kernel with its tables as [entry][4 slots] in place of two slot
+# pairs: one 16-byte load a lookup, and rows whose nibbles differ by 8 meet
+# on a bank; its output is the scan's.
 GROUPED_LAB_MODES = {
-    **{f"{scan}{'' if kernel == 'sm' else '_arm'}_{name}": (scan, kernel, number, keeps)
+    **{f"{scan}_{name}": (scan, number, keeps)
        for scan in ("f32", "u8")
-       for kernel in ("sm", "arm")
        for name, number, keeps in (
            ("copy", 1, "codes in, sentinel out"),
            ("no_min", 2, "lookups and sums, no minimum"),
            ("const_code", 3, "lookups at a fixed code byte: every lane on one entry"),
            ("empty", None, "the grid with every slot dead: walk, checks and exits alone"),
        )},
-    "f32_quad": ("f32", "sm", 4, "tables as [entry][4 slots]: 16-byte loads that meet on banks"),
+    "f32_quad": ("f32", 4, "tables as [entry][4 slots]: 16-byte loads that meet on banks"),
 }
-# The kernel each lab mode launches (a profiler's name filter).
-GROUPED_LAB_KERNELS = {("f32", "sm"): "grouped_scan_sm_kernel",
-                       ("f32", "arm"): "grouped_scan_kernel",
-                       ("u8", "sm"): "grouped_scan8_sm_kernel",
-                       ("u8", "arm"): "grouped_scan8_kernel"}
+# The kernel each scan's lab modes launch (a profiler's name filter).
+GROUPED_LAB_KERNELS = {"f32": "grouped_scan_sm_kernel", "u8": "grouped_scan8_sm_kernel"}
 
 
 def grouped_lab(codes, tables, group_part, slot_pair, group_sizes, mode: str):
-    """A grouped scan (the slot-minor kernel or the kernel it replaced) with
-    parts removed, or ("*_empty") with every slot of slot_pair dead.
+    """A slot-minor grouped scan with parts removed, or ("*_empty") with
+    every slot of slot_pair dead.
 
     Args: grouped_scan's (float32 (QA, 16, 16) tables) for the f32 modes,
       grouped_scan8's ((QA, 8, 256) bfloat16 tables) for the u8 modes.
@@ -444,7 +427,7 @@ def grouped_lab(codes, tables, group_part, slot_pair, group_sizes, mode: str):
       mode keeps. On the CPU copy and quad run their plain versions and the
       others raise: they exist to be timed on the card.
     """
-    scan, kernel, number, _ = GROUPED_LAB_MODES[mode]
+    scan, number, _ = GROUPED_LAB_MODES[mode]
     f32 = scan == "f32"
     lut_scan._check_groups(codes, group_part, slot_pair, group_sizes)
     dev = codes.device
@@ -468,14 +451,11 @@ def grouped_lab(codes, tables, group_part, slot_pair, group_sizes, mode: str):
     outs = (torch.empty((qa, c), dtype=torch.float32, device=dev),) + (
         () if f32 else (torch.empty((qa, c), dtype=torch.int32, device=dev),))
     ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, *outs)]
+    entry = "qadc_grouped_scan_sm" if f32 else "qadc_grouped_scan8_sm"
     if number is None:
-        entry = {("f32", "sm"): "qadc_grouped_scan_sm", ("f32", "arm"): "qadc_grouped_scan",
-                 ("u8", "sm"): "qadc_grouped_scan8_sm", ("u8", "arm"): "qadc_grouped_scan8"}
-        extra = (8, 1) if f32 and kernel == "arm" else (8,)  # cb or m, and the float flag
-        _launch(entry[scan, kernel], dev, *ptrs, gcap, g, rpp, *extra)
+        _launch(entry, dev, *ptrs, gcap, g, rpp, 8)  # cb or m
     else:
-        entry = f"qadc_grouped_scan{'' if f32 else '8'}{'_sm' if kernel == 'sm' else ''}_lab"
-        _launch(entry, dev, *ptrs, gcap, g, rpp, number)
+        _launch(entry + "_lab", dev, *ptrs, gcap, g, rpp, number)
     launches["scan_lab"] += 1
     return outs[0] if f32 else outs
 
@@ -486,7 +466,7 @@ def check_grouped(f32_args, u8_args) -> None:
     scan's minima; the other modes only launch. f32_args / u8_args:
     grouped_scan's / grouped_scan8's arguments (16x4 float tables, 8x8 bf16
     tables)."""
-    for mode, (scan, _, number, _) in GROUPED_LAB_MODES.items():
+    for mode, (scan, number, _) in GROUPED_LAB_MODES.items():
         args = f32_args if scan == "f32" else u8_args
         got = grouped_lab(*args, mode)
         if number == 4 and not torch.equal(got, lut_scan.grouped_scan(*args)):

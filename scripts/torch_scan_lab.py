@@ -13,20 +13,19 @@ queries' int8 tables it prints, in device milliseconds (torch.profiler,
 100 launches each):
 
   A/B      flat_scan and flat_scan_window (int8 one-hot x table product:
-           wgmma at this batch) against flat_scan_lookup and
-           flat_scan_window_lookup (shared-memory lookups) and
-           flat_scan_window_regs (tables in registers), after checking that
-           all five give the same minima bit for bit;
+           wgmma at this batch) against flat_scan_window_regs (tables in
+           registers), after checking that all three give the plain
+           version's minima bit for bit;
   sweep    flat_scan by its wgmma kernel and by its mma.sync kernel at 8 to
            128 queries: the crossover behind lut_scan.WGMMA_MIN_QUERIES;
   modes    the mma.sync scan with parts removed: full, const_onehot, no_mma,
            no_min, copy, expand_only, acc_only, min_only, and full with 32
            or 16 queries a warp;
-  exact    mismatches of the mma scan against the lookup scan over
+  exact    mismatches of the mma scan against the plain version over
            adversarial tables (all 127, all 0, one-hot rows, random) at 16
            and 32 sub-quantizers, and the float32 selector sum's largest
            relative error against float64;
-  M1       grouped_scan against grouped_scan_lookup at the routed groups of
+  M1       grouped_scan, held to its plain version, at the routed groups of
            32 and 128 queries x 24 probes over the seeded IVF-256 index.
 
   query-minor  the float32 flat_scan and flat_scan8 by their query-minor
@@ -40,17 +39,17 @@ queries' int8 tables it prints, in device milliseconds (torch.profiler,
            torch.matmul in ten runs of 100 launches each.
 
   grouped  M1 with float32 tables and grouped_scan8 by their slot-minor
-           kernels (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu) against the
-           kernels they replaced, over the seeded IVF-256 16x4 and 8x8
+           kernels (csrc/grouped_scan_sm.cu, grouped_scan8_sm.cu), held to
+           their plain versions, over the seeded IVF-256 16x4 and 8x8
            indexes at search_adc's routed groups of 1 to 128 queries x 24
            probes and at a hot partition (128 near-duplicate queries: whole
            groups of 128 live slots); each with its lab modes (copy, no_min,
            const_code, and every slot dead) at 32 queries and at the hot
-           partition; the new kernels' b=32 time in ten runs.
+           partition; the kernels' b=32 time in ten runs.
 
   window   the float32 flat_scan_window by its query-minor kernel
-           (csrc/flat_scan_window_qm.cu) and by the lookup kernel it
-           replaced (flat_scan_window_f32_lookup) at 1 to 128 queries, at
+           (csrc/flat_scan_window_qm.cu) and by the lookup kernel
+           (flat_scan_window_f32_lookup) at 1 to 128 queries, at
            (block 1024, W 16) and (512, 8) over the 16x4 codes and (1024, 16)
            over 1,000,448 seeded random 32x4 codes, both equal bit for bit
            at every batch first: the crossover behind the kernel choice of
@@ -180,9 +179,9 @@ def window_crossover(codes, dev, card: str) -> dict:
     tables = {16: torch.from_numpy(rng.random((Q, 16, 16)).astype(np.float32)).to(dev),
               32: torch.from_numpy(rng.random((Q, 32, 16)).astype(np.float32)).to(dev)}
     out = {}
-    floor = lut_scan.QUERY_MINOR_MIN_QUERIES
+    floor = lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES
     try:
-        lut_scan.QUERY_MINOR_MIN_QUERIES = 1
+        lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES = 1
         for m, ix_codes, bn, w in ((16, codes, 1024, 16), (16, codes, 512, 8),
                                    (32, codes32, 1024, 16)):
             for q in (1, 2, 4, 8, 12, 16, 20, 24, 26, 28, 30, 32, 64, Q):
@@ -198,7 +197,7 @@ def window_crossover(codes, dev, card: str) -> dict:
                     "lookup": device_ms(lambda: lut_scan.flat_scan_window_f32_lookup(*args),
                                         "flat_scan_window_kernel")}
     finally:
-        lut_scan.QUERY_MINOR_MIN_QUERIES = floor
+        lut_scan.WINDOW_QUERY_MINOR_MIN_QUERIES = floor
     print(f"float window scan by kernel and batch, device ms: {out} [{card}]", flush=True)
     return out
 
@@ -212,43 +211,39 @@ def grouped(dev, card: str) -> dict:
     batches = {f"b={b}": torch.randn((b, 128), generator=gen, device=dev)
                for b in (1, 8, 32, 64, Q)}
     batches["hot"] = batches["b=1"] + 1e-3 * torch.randn((Q, 128), generator=gen, device=dev)
-    kernels = {4: (lut_scan.grouped_scan, "grouped_scan_sm_kernel",
-                   lut_scan.grouped_scan_f32_lookup, "grouped_scan_kernel"),
-               8: (lut_scan.grouped_scan8, "grouped_scan8_sm_kernel",
-                   lut_scan.grouped_scan8_lookup, "grouped_scan8_kernel")}
+    kernels = {4: (lut_scan.grouped_scan, "grouped_scan_sm_kernel", lut_scan.grouped_scan_plain),
+               8: (lut_scan.grouped_scan8, "grouped_scan8_sm_kernel", lut_scan.grouped_scan8_plain)}
     out = {"ms": {}, "live": {}, "mode_ms": {}}
     for bits, ix in indexes.items():
-        new, new_name, arm, arm_name = kernels[bits]
+        scan, name, plain = kernels[bits]
         for tag, qs in batches.items():
             parts, rot = ivf.assign_queries(ix, qs, MA)
             t = ivf.adc_tables(rot, ix.pq.centroids).reshape(qs.shape[0] * MA, ix.pq.sq_count, -1)
             routed = route_queries(parts, ix.part_count, 128)
             args = (ix.codes, t if bits == 4 else t.to(torch.bfloat16), routed.group_part,
                     routed.slot_pairs(), ivf._group_sizes(ix, routed))
-            got, want = new(*args), arm(*args)
+            got, want = scan(*args), plain(*args)
             same = (torch.equal(got, want) if bits == 4
                     else torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
             if not same:
                 raise AssertionError(
-                    f"{bits}-bit {tag}: the slot-minor kernel differs from the arm")
+                    f"{bits}-bit {tag}: the slot-minor kernel differs from the plain version")
             live = (args[3] >= 0).sum(1)
             out["live"][f"{bits}-bit {tag}"] = {"groups": int((live > 0).sum()),
                                                 "mean": float(live[live > 0].float().mean()),
                                                 "max": int(live.max())}
-            out["ms"][f"{bits}-bit {tag}"] = {
-                "slot_minor": device_ms(lambda: new(*args), new_name),
-                "arm": device_ms(lambda: arm(*args), arm_name, reps=30)}
+            out["ms"][f"{bits}-bit {tag}"] = device_ms(lambda: scan(*args), name)
             if tag in ("b=32", "hot"):
-                for mode, (scan, kern, _, _) in scan_lab.GROUPED_LAB_MODES.items():
-                    if (scan == "f32") == (bits == 4):
+                for mode, (lab_scan, _, _) in scan_lab.GROUPED_LAB_MODES.items():
+                    if (lab_scan == "f32") == (bits == 4):
                         out["mode_ms"][f"{mode} {tag}"] = device_ms(
                             lambda mode=mode: scan_lab.grouped_lab(*args, mode),
-                            scan_lab.GROUPED_LAB_KERNELS[scan, kern], reps=30)
+                            scan_lab.GROUPED_LAB_KERNELS[lab_scan], reps=30)
                 if tag == "b=32":
                     out["ms"][f"{bits}-bit b=32 ten runs"] = [
-                        device_ms(lambda: new(*args), new_name) for _ in range(10)]
+                        device_ms(lambda: scan(*args), name) for _ in range(10)]
     print(f"grouped live slots: {out['live']}", flush=True)
-    print(f"grouped slot-minor and arm, device ms: {out['ms']} [{card}]", flush=True)
+    print(f"grouped slot-minor kernels, device ms: {out['ms']} [{card}]", flush=True)
     print(f"grouped lab modes, device ms: {out['mode_ms']} [{card}]", flush=True)
     return out
 
@@ -278,7 +273,7 @@ def main() -> int:
     out = scan_lab.run(codes, tables, N, device_ms)
     print(f"A/B b={Q} x {N_PAD} codes, device ms: {out['ab_ms']} [{card}]", flush=True)
     print(f"modes, device ms: {out['mode_ms']} [{card}]", flush=True)
-    print(f"exactness (mismatches against the lookup kernel): {out['exactness']}; "
+    print(f"exactness (mismatches against the plain version): {out['exactness']}; "
           f"selector sum max rel err {out['selector_sum_max_rel_err']:.3g}", flush=True)
     bad = sum(sum(v.values()) for v in out["exactness"].values())
     if bad or out["selector_sum_max_rel_err"] >= 1e-6:
@@ -315,14 +310,11 @@ def main() -> int:
         qt = torch.from_numpy(rng.integers(0, 128, (b * MA, 16, 16)).astype(np.int8)).to(dev)
         args = (index.codes, qt, routed.group_part, routed.slot_pairs(),
                 ivf._group_sizes(index, routed))
-        if not torch.equal(lut_scan.grouped_scan(*args), lut_scan.grouped_scan_lookup(*args)):
-            print(f"M1 b={b}: the mma kernel differs from the lookup kernel", file=sys.stderr)
+        if not torch.equal(lut_scan.grouped_scan(*args), lut_scan.grouped_scan_plain(*args)):
+            print(f"M1 b={b}: the mma kernel differs from the plain version", file=sys.stderr)
             return 1
-        out["m1_ms"][f"b{b}"] = {
-            "grouped_scan": device_ms(lambda: lut_scan.grouped_scan(*args),
-                                      "grouped_scan_mma_kernel"),
-            "grouped_scan_lookup": device_ms(lambda: lut_scan.grouped_scan_lookup(*args),
-                                             "grouped_scan_kernel")}
+        out["m1_ms"][f"b{b}"] = device_ms(lambda: lut_scan.grouped_scan(*args),
+                                          "grouped_scan_mma_kernel")
     print(f"M1 routed groups, device ms: {out['m1_ms']} [{card}]", flush=True)
     print(json.dumps({"scan_lab": out, "card": card}))
     print(card)

@@ -125,8 +125,8 @@ def test_direct_scan_walk_equals_plain(cb, rounds, part_pad):
     want = lut_scan.direct_scan_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[0][0] == lut_scan.MASK_BIG).all()              # the empty partition
-    blocks = lut_scan.direct_scan_blocks(*args)                # the arm's plain version
-    assert torch.equal(blocks[0], want[0]) and torch.equal(blocks[1], want[1])
+    dispatched = lut_scan.direct_scan(*args)                   # the wrapper on the CPU
+    assert torch.equal(dispatched[0], want[0]) and torch.equal(dispatched[1], want[1])
 
 
 def test_direct_scan_rounds_fill_the_sms():

@@ -184,28 +184,12 @@ def test_to_slot_minor_layout(n):
     assert (sm[:, n:] == 0).all()
 
 
-def test_arms_on_the_cpu_are_the_plain_versions():
-    *groups, qa = groups_with_live_counts((3, 12), RPP, 16, seed=5)
-    codes = _codes(5, 2)
-    t4 = _int_tables(5, qa, 16, 16, torch.float32)
-    t8 = _int_tables(6, qa, 8, 256, torch.bfloat16)
-    before = dict(lut_scan.launches)
-    assert torch.equal(lut_scan.grouped_scan_f32_lookup(codes, t4, *groups),
-                       lut_scan.grouped_scan_plain(codes, t4, *groups))
-    got, want = (lut_scan.grouped_scan8_lookup(codes, t8, *groups),
-                 lut_scan.grouped_scan8_plain(codes, t8, *groups))
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert lut_scan.launches == before              # no kernel was launched
-    with pytest.raises(TypeError):                  # the float arm takes float tables only
-        lut_scan.grouped_scan_f32_lookup(codes, t4.to(torch.int8), *groups)
-
-
 @pytest.mark.parametrize("mode", list(scan_lab.GROUPED_LAB_MODES))
 def test_grouped_lab_modes_on_the_cpu(mode):
     """copy has a plain version (the sentinels) and quad the scan's; the
     other modes exist to be timed on the card and raise here. Wrong tables
     raise for every mode."""
-    scan, _, number, _ = scan_lab.GROUPED_LAB_MODES[mode]
+    scan, number, _ = scan_lab.GROUPED_LAB_MODES[mode]
     *groups, qa = groups_with_live_counts((3,), RPP, 16, seed=2)
     codes = _codes(2, 1)
     tables = (torch.zeros((qa, 16, 16)) if scan == "f32"

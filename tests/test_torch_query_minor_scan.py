@@ -10,6 +10,8 @@ contract, their layout and chunk helpers, and the CPU side of their lab.
     of empty rows, n = 0, and tables of small integers that tie.
   to_query_minor / from_query_minor: the identity at every chunk the
     launchers can pick; every pick fits the 227 KB a block may take.
+Every kernel wrapper of lut_scan on CPU tensors: its plain version, no launch,
+and the table dtype it refuses (test_wrappers_run_the_plain_versions_on_the_cpu).
 The kernels themselves run only on a card (tests/test_torch_cuda_kernels.py);
 the JAX kernels hold the same plain versions in tests/test_torch_flat_kernels.py.
 """
@@ -110,23 +112,85 @@ def test_query_minor_chunk_rejects_a_table_too_wide():
         lut_scan.query_minor_chunk(4, 64 * 1024, 8)
 
 
-def test_wrappers_and_arms_run_the_plain_versions_on_the_cpu():
-    g = np.random.default_rng(3)
-    codes = torch.from_numpy(g.integers(0, 256, (32, 128), dtype=np.uint8))
-    t4 = torch.from_numpy(g.random((40, 16, 16)).astype(np.float32))
-    t8 = torch.from_numpy(g.random((40, 8, 256)).astype(np.float32)).to(torch.bfloat16)
+def _wrapper_case(name: str):
+    """(wrapper, its arguments, its keyword arguments, the plain version,
+    the index of the table argument, the table dtype the wrapper refuses or
+    None where it takes both int8 and float32 tables) of one case of
+    test_wrappers_run_the_plain_versions_on_the_cpu."""
+    g = np.random.default_rng(5)
+    i8 = lambda *shape: torch.from_numpy(g.integers(0, 128, shape).astype(np.int8))  # noqa: E731
+    f32 = lambda *shape: torch.from_numpy(g.random(shape).astype(np.float32))  # noqa: E731
+    bf16 = lambda *shape: f32(*shape).to(torch.bfloat16)  # noqa: E731
+    i32 = lambda values: torch.tensor(values, dtype=torch.int32)  # noqa: E731
+    rows = lambda r: torch.from_numpy(g.integers(0, 256, (r, 128), dtype=np.uint8))  # noqa: E731
+    # Three partitions of 4 storage rows (64 8-byte codes), one group each.
+    parts, groups = rows(12).reshape(3, 4, 128), (
+        i32([0, 1, 2]), i32([[0, 1, -1, 2], [3, -1, -1, -1], [-1, 4, 5, -1]]), i32([64, 37, 5]))
+    # Window scans: 1024 8-byte codes, 1000 of them real, block 1024, W 16.
+    window = (rows(64),)
+    window_rest = (1000, 1024, 16)
+    lut = lut_scan
+    if name.startswith("grouped_scan8"):
+        return lut.grouped_scan8, (parts, bf16(6, 8, 256), *groups), {}, lut.grouped_scan8_plain, \
+            1, torch.float32
+    if name.startswith("grouped_scan"):
+        tables = i8(6, 16, 16) if name.endswith("int8") else f32(6, 16, 16)
+        return lut.grouped_scan, (parts, tables, *groups), {}, lut.grouped_scan_plain, 1, None
+    if name == "rows_adc":
+        return lut.rows_adc, (rows(10), i32([3, 3, 9, 0, 7]), i32([1, 1, 0, 4, 2]),
+                              f32(5, 128), f32(5, 128)), {}, lut.rows_adc_plain, 3, torch.bfloat16
+    if name == "direct_scan":
+        return lut.direct_scan, (rows(48).reshape(3, 16, 128), i32([2, 0, 1, 2]), f32(4, 128),
+                                 f32(4, 128), i32([256, 3, 0, 200])), {}, \
+            lut.direct_scan_plain, 2, torch.bfloat16
+    if name.startswith("flat_scan8"):
+        fn = lut.flat_scan8_lookup if name.endswith("lookup") else lut.flat_scan8
+        return fn, (rows(16), bf16(3, 8, 256), 250), {}, lut.flat_scan8_plain, 1, torch.float32
+    if name == "flat_scan_f32_lookup":
+        return lut.flat_scan_f32_lookup, (rows(9), f32(3, 16, 16), 130), {"with_rows": True}, \
+            lut.flat_scan_plain, 1, torch.int8
+    if name.startswith("flat_scan_window_regs"):
+        return lut.flat_scan_window_regs, (*window, i8(3, 16, 16), *window_rest), {}, \
+            lambda *a: lut.flat_scan_window_plain(*a)[0], 1, torch.float32
+    if name == "flat_scan_window_f32_lookup":
+        return lut.flat_scan_window_f32_lookup, (*window, f32(3, 16, 16), *window_rest), \
+            {"with_rows": True}, lut.flat_scan_window_plain, 1, torch.int8
+    if name.startswith("flat_scan_window"):
+        kw = {"min": {}, "rows": {"with_rows": True}, "transposed": {"transpose_out": True},
+              "float32": {"with_rows": True}}[name.split()[-1]]
+        tables = f32(3, 16, 16) if name.endswith("float32") else i8(3, 16, 16)
+        return lut.flat_scan_window, (*window, tables, *window_rest), kw, \
+            lut.flat_scan_window_plain, 1, None
+    tables = i8(3, 16, 16) if name.endswith("int8") else f32(3, 16, 16)
+    return lut.flat_scan, (rows(9), tables, 130), {"with_rows": True}, lut.flat_scan_plain, 1, None
+
+
+WRAPPER_CASES = ["grouped_scan int8", "grouped_scan float32", "grouped_scan8", "rows_adc",
+                 "direct_scan", "flat_scan int8", "flat_scan float32", "flat_scan_f32_lookup",
+                 "flat_scan8", "flat_scan8_lookup", "flat_scan_window int8 min",
+                 "flat_scan_window int8 rows", "flat_scan_window int8 transposed",
+                 "flat_scan_window float32", "flat_scan_window_f32_lookup",
+                 "flat_scan_window_regs"]
+
+
+@pytest.mark.parametrize("name", WRAPPER_CASES)
+def test_wrappers_run_the_plain_versions_on_the_cpu(name):
+    """Every kernel wrapper on CPU tensors returns its plain version's result
+    bit for bit and launches nothing; a wrapper that takes one table dtype
+    refuses the other with a TypeError."""
+    fn, args, kw, plain, at, refused = _wrapper_case(name)
     before = dict(lut_scan.launches)
-    want = lut_scan.flat_scan_plain(codes, t4, 500, True)
-    for fn in (lut_scan.flat_scan, lut_scan.flat_scan_f32_lookup):
-        got = fn(codes, t4, 500, True)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    want = lut_scan.flat_scan8_plain(codes, t8, 500)
-    for fn in (lut_scan.flat_scan8, lut_scan.flat_scan8_lookup):
-        got = fn(codes, t8, 500)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a is b is None or torch.equal(a, b)
     assert lut_scan.launches == before            # no kernel was launched
-    with pytest.raises(TypeError):                # the float arm takes float tables only
-        lut_scan.flat_scan_f32_lookup(codes, torch.zeros((2, 16, 16), dtype=torch.int8), 500)
+    if refused is not None:
+        wrong = list(args)
+        wrong[at] = wrong[at].to(refused)
+        with pytest.raises(TypeError):
+            fn(*wrong, **kw)
 
 
 @pytest.mark.parametrize("mode", list(scan_lab.QM_LAB_MODES))

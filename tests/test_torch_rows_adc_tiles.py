@@ -150,12 +150,3 @@ def test_staged_layout_and_stores(cb):
                     store = [slot * slot_words + off + lut_scan.rows_adc_word(4 * x % cb + k, 4 * x // cb)
                              for x in f]
                     assert _banks(store) == 1
-
-
-def test_rows_adc_cached_is_the_plain_version_on_cpu():
-    args = id_list_inputs("random", 129, 8)
-    before = dict(lut_scan.launches)
-    assert torch.equal(lut_scan.rows_adc_cached(*args), lut_scan.rows_adc_plain(*args))
-    assert lut_scan.launches == before
-    with pytest.raises(ValueError):
-        lut_scan.rows_adc_cached(args[0], args[1], args[2][:5], args[3], args[4])

@@ -334,21 +334,3 @@ def test_selector_sum_plain_holds_float64_at_any_rows(rows, cb):
     assert got.shape == (rows, 128 // cb)
     want = x.double().reshape(rows, 128 // cb, cb).sum(-1)
     assert float(((got - want).abs() / want.abs().clamp(min=1e-9)).max()) < 1e-6
-
-
-def test_lookup_entries_are_the_plain_versions_on_cpu():
-    codes, tables = _inputs(16, 5, 12, 4)
-    n = 100
-    a, b = lut_scan.flat_scan_lookup(codes, tables, n, True), lut_scan.flat_scan_plain(
-        codes, tables, n, True)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    with pytest.raises(TypeError):                                   # int8 tables only
-        lut_scan.flat_scan_lookup(codes, tables.float(), n)
-    g = np.random.default_rng(2)
-    gcodes = torch.from_numpy(g.integers(0, 256, (6, 10, 128), dtype=np.uint8))
-    gtab = torch.from_numpy(g.integers(0, 128, (12, 16, 16)).astype(np.int8))
-    groups = _groups(g, [0, 1, 17, 160, 100, 33], 10, 16, 3, 4, 4)
-    assert torch.equal(lut_scan.grouped_scan_lookup(gcodes, gtab, *groups),
-                       lut_scan.grouped_scan_plain(gcodes, gtab, *groups))
-    with pytest.raises(TypeError):
-        lut_scan.grouped_scan_lookup(gcodes, gtab.float(), *groups)

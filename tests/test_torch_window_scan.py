@@ -197,6 +197,8 @@ def test_illegal_shapes_raise():
         lut_scan.flat_scan_window(codes, tables, N_PAD, 8, 8)
     with pytest.raises(ValueError, match="multiple of block_n"):
         lut_scan.flat_scan_window_regs(codes, tables, N_PAD, 3072, 16)
+    with pytest.raises(ValueError, match="multiple of window"):
+        lut_scan.flat_scan_window_regs(codes, tables, N_PAD, 1024, 48)
     with pytest.raises(TypeError):
         lut_scan.flat_scan_window_regs(codes, tables.float(), N_PAD, 1024, 16)
     jt = jls.build_scan_tables(jnp.asarray(_tables(8)))

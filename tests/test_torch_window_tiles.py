@@ -143,14 +143,3 @@ def test_tile_walk_at_cpr_is_flat_scan():
         f_mins, f_ids = lut_scan.flat_scan_plain(codes, tables, n, with_rows=True)
         assert torch.equal(mins, f_mins) and torch.equal(vals.T, f_mins)
         assert torch.equal(ids.T, f_ids)
-
-
-@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
-def test_lookup_arm_on_cpu_is_the_plain_version(mode):
-    codes, tables = _inputs(16, 1024)
-    before = dict(lut_scan.launches)
-    _equal(lut_scan.flat_scan_window_lookup(codes, tables, 3000, 1024, 16, **mode),
-           lut_scan.flat_scan_window_plain(codes, tables, 3000, 1024, 16, **mode))
-    assert lut_scan.launches == before            # no kernel on the CPU
-    with pytest.raises(TypeError):
-        lut_scan.flat_scan_window_lookup(codes, tables.float(), 3000, 1024, 16)

@@ -286,28 +286,6 @@ def test_vminu2_takes_each_lane():
     assert lut_scan.vminu2(a, b).tolist() == [0x00010000, 0x00040002, 0x00000000]
 
 
-# ---- the wrappers on the CPU --------------------------------------------------
-
-
-def test_arms_run_the_plain_version_on_the_cpu():
-    codes = torch.from_numpy(_codes(16, 1024))
-    n = _padded_n(codes, 16, 1024)
-    ft = torch.from_numpy(_float_tables(16, False))
-    it = torch.from_numpy(_int_tables(16, "random"))
-    before = dict(lut_scan.launches)
-    _equal(lut_scan.flat_scan_window_f32_lookup(codes, ft, n, 1024, 16, with_rows=True),
-           lut_scan.flat_scan_window_plain(codes, ft, n, 1024, 16, with_rows=True))
-    assert torch.equal(lut_scan.flat_scan_window_regs_single(codes, it, n, 1024, 16),
-                       lut_scan.flat_scan_window_plain(codes, it, n, 1024, 16)[0])
-    assert lut_scan.launches == before                             # no kernel ran
-    with pytest.raises(TypeError):
-        lut_scan.flat_scan_window_f32_lookup(codes, it, n, 1024, 16)
-    with pytest.raises(TypeError):
-        lut_scan.flat_scan_window_regs_single(codes, ft, n, 1024, 16)
-    with pytest.raises(ValueError, match="multiple of window"):
-        lut_scan.flat_scan_window_regs_single(codes, it, n, 1024, 48)
-
-
 # ---- the compiled loops' counts (scan_lab.sass_loops) -------------------------
 
 _SASS = """
