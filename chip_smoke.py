@@ -376,12 +376,12 @@ def profiled(torch, fn, kernel: str | None = None, reps: int = REPS) -> tuple[fl
 
 
 def nbytes(*tensors) -> int:
-    """Bytes of the tensors (nested tuples and None allowed)."""
+    """Bytes of the tensors (nested tuples, None and flags allowed)."""
     total = 0
     for t in tensors:
         if isinstance(t, (tuple, list)):
             total += nbytes(*t)
-        elif t is not None:
+        elif t is not None and not isinstance(t, bool):
             total += t.numel() * t.element_size()
     return total
 
@@ -538,7 +538,8 @@ def main() -> int:
         return moved, adds
 
     def exact_int(got, want):
-        check(torch.equal(got, want), "grouped_scan differs from its plain version")
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        check(all(torch.equal(a, b) for a, b in pairs), "grouped_scan differs from its plain version")
         return 0.0
 
     # M1 at the routed groups of b=128 (the name the main path counts) and
@@ -563,9 +564,10 @@ def main() -> int:
     # shape 4) to a mean of DEEP_N / DEEP_PARTS = 24,414 codes, part_pad
     # the largest rounded up to ivf.PART_ALIGN (~70k, as the real build's:
     # the largest list ~3x the mean), random distinct probes and int8
-    # tables; 2.3 GB of codes in HBM. The bound counts the real codes of
+    # tables; 2.3 GB of codes in HBM. With the tile minima, as the search
+    # there asks (its screen tiles). The bound counts the real codes of
     # the probed lists once (M1 reads no padded code), the tables, the
-    # routing and the (QA, rpp) output.
+    # routing and the (QA, rpp) output and its tile minima.
     gen = torch.Generator(device=device)
     gen.manual_seed(20)
     deep_sizes = torch.from_numpy(np.maximum(1, np.random.default_rng(20).gamma(
@@ -591,8 +593,8 @@ def main() -> int:
           f"({int(deep_routed.n_groups)} live)", flush=True)
     kernel_phase("grouped_scan[deep b=512]", "grouped_scan_mma_kernel",
                  "qadc_tpu_torch/csrc/scan_mma.cu", "qadc_tpu/kernels/lut_scan.py:857",
-                 lambda: lut_scan.grouped_scan(*deep_args),
-                 lambda: lut_scan.grouped_scan_plain(*deep_args), exact_int,
+                 lambda: lut_scan.grouped_scan(*deep_args, True),
+                 lambda: lut_scan.grouped_scan_plain(*deep_args, True), exact_int,
                  deep_real + nbytes(*deep_args[1:]),
                  int(deep_sizes[deep_probes.long()].sum()) * 16, PEAK_INT8)
     del deep_codes, deep_args

@@ -11,7 +11,10 @@
 // of the 2*CB selected table entries, no 127 saturation; 1 << 30 for a row
 // with no real code (flat: at or past n; grouped: at or past the partition's
 // size); with rows_out (flat only) the code index of the minimum, ties to
-// the lower code, -1 for such a row. Float32 tables stay on lookup kernels
+// the lower code, -1 for such a row; with tile_min (grouped only, rpp a
+// multiple of 32) also per (pair, tile of 32 rows) the minimum of the tile's
+// real rows as float32, +inf for a tile with none, for the screen that
+// follows (ops/topk.py:exact_tile_screen). Float32 tables stay on lookup kernels
 // (flat_scan.cu, flat_scan_qm.cuh, grouped_scan_sm.cu): their sums must keep
 // rows_adc's order bit for bit.
 //
@@ -72,6 +75,12 @@
 //     the sentinel rows of groups w, w + W, .. (past the group's last real
 //     oct) by plain 16-byte stores. Blocks that would find no real row (2/3
 //     of the padded grid of a list 2.7-3x the mean) are never launched.
+// The tile minima: the plan sets every tile of each live pair to +inf; the
+// scan folds each oct's row minima into a register per pair column (one
+// 16-bit min an oct) and, where the warp's walk leaves a tile (its fourth
+// oct, the group's last real oct, the end of the warp's share), folds the
+// eight rows across the lanes and merges the tile by an atomic minimum on
+// the float's bits: a share boundary may cut a tile between two warps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,6 +99,9 @@ constexpr int kPrefixThreads = 1024;
 constexpr int kPrefixPerThread = 8;
 constexpr int kNone16 = 0x7FFF;             // a 16-bit lane with no real code
 constexpr uint32_t kNonePair = 0x7FFF7FFFu;
+constexpr int kTileRows = 32;               // rows of a tile minimum (lut_scan.TILE)
+constexpr int kTileOcts = kTileRows / kOct;
+constexpr int kInfBits = 0x7F800000;        // +inf: above every sum's float bits
 
 // A warp's cost of one oct of a group with `tiles` N tiles: a one-hot build
 // (kOneHotCost) a chunk of NT tiles, and one unit a tile. Mirrored by
@@ -109,7 +121,8 @@ __device__ __forceinline__ int oct_cost(int live) {
 // The plan, a warp a group: its live pairs packed to the front of its row of
 // live_pairs (any order: a pair owns its out row), their count, and
 // base[g + 1] = the group's cost, octs * oct_cost, with its real rows in the
-// high 32 bits (both 0 without a live pair).
+// high 32 bits (both 0 without a live pair); with tile_min, every tile of
+// each live pair set to +inf for the scan's atomic minima.
 template <int CB, int NT>
 __global__ void __launch_bounds__(kMmaThreads)
 grouped_scan_mma_kernel_plan(const int32_t* __restrict__ slot_pair,    // (gcap, G), -1 = empty
@@ -117,6 +130,7 @@ grouped_scan_mma_kernel_plan(const int32_t* __restrict__ slot_pair,    // (gcap,
                              int32_t* __restrict__ live_pairs,         // (gcap, G)
                              int32_t* __restrict__ live,               // (gcap,)
                              long long* __restrict__ base,             // (gcap + 2,)
+                             int32_t* __restrict__ tile_min,           // (QA, rpp / 32) or null
                              int gcap, int group_size, int rpp) {
   const int grp = blockIdx.x * kMmaWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -136,6 +150,14 @@ grouped_scan_mma_kernel_plan(const int32_t* __restrict__ slot_pair,    // (gcap,
     base[grp + 1] = (static_cast<long long>(rows) << 32) |
                     static_cast<long long>((rows + kOct - 1) / kOct * oct_cost<NT>(n));
     if (grp == 0) base[0] = 0;
+  }
+  if (tile_min) {
+    const int ntiles = rpp / kTileRows;
+    __syncwarp();  // the lanes' packed pairs are visible to the warp
+    for (int i = 0; i < n; ++i) {
+      int32_t* row = tile_min + static_cast<size_t>(packed[i]) * ntiles;
+      for (int t = lane; t < ntiles; t += 32) row[t] = kInfBits;
+    }
   }
 }
 
@@ -205,6 +227,7 @@ struct GroupedArgs {
   const int32_t* live;          // (gcap,)
   const long long* base;        // (gcap + 2,) prefix of the groups' costs, rows
   int32_t* out;                 // (QA, rpp)
+  int32_t* tile_min;            // (QA, rpp / 32) float32 bits, or null
   int rpp, group_size, gcap;
 };
 
@@ -336,14 +359,16 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t c) {
 // One oct of the cursor's group against NTC N tiles: the m-tiles (16 codes:
 // one storage row at CB = 8, two at CB = 16) kPar at a time, the row minima
 // per pair column in 16-bit lanes, reduced and stored one 32-byte sector per
-// (pair, oct). The A fragment of a k-step is four permutes of the codes'
+// (pair, oct), and folded into tacc (the lane's row minima of the tile so
+// far). The A fragment of a k-step is four permutes of the codes'
 // nibbles (the head of this file). Four m-tiles at a time, or two sums an
 // m-tile taking the k-steps in turns, were no faster (H100 80GB HBM3).
 constexpr int kPar = 2;
 template <int CB, int NT, int NTC, bool kWhole>
 __device__ __forceinline__ void scan_oct(const uint32_t (&bt)[NT][CB][2], const int (&pid)[NT][2],
                                          const uint4* stage, const OctCursor& c,
-                                         int32_t* __restrict__ out, int rpp) {
+                                         int32_t* __restrict__ out, int rpp,
+                                         uint32_t (&tacc)[NT]) {
   constexpr int kCpr = 128 / CB;
   constexpr int kRowsPerTile = CB / 8;
   constexpr int kMTiles = kOct / kRowsPerTile;
@@ -436,6 +461,7 @@ __device__ __forceinline__ void scan_oct(const uint32_t (&bt)[NT][CB][2], const 
 #pragma unroll
   for (int j = 0; j < NTC; ++j) {
     const uint32_t v = reduce_rows(x[j], gl);
+    tacc[j] = __vmins2(tacc[j], v);
     if (row >= rpp) continue;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -453,12 +479,46 @@ template <int CB, int NT>
 __device__ __forceinline__ void scan_chunk(const uint32_t (&bt)[NT][CB][2],
                                            const int (&pid)[NT][2], bool full_chunk,
                                            const uint4* stage, const OctCursor& c,
-                                           int32_t* __restrict__ out, int rpp) {
+                                           int32_t* __restrict__ out, int rpp,
+                                           uint32_t (&tacc)[NT]) {
   const bool whole = (c.o + 1) * kOct * (128 / CB) <= c.size;
-  if (full_chunk && whole) scan_oct<CB, NT, NT, true>(bt, pid, stage, c, out, rpp);
-  else if (full_chunk) scan_oct<CB, NT, NT, false>(bt, pid, stage, c, out, rpp);
-  else if (whole) scan_oct<CB, NT, 1, true>(bt, pid, stage, c, out, rpp);
-  else scan_oct<CB, NT, 1, false>(bt, pid, stage, c, out, rpp);
+  if (full_chunk && whole) scan_oct<CB, NT, NT, true>(bt, pid, stage, c, out, rpp, tacc);
+  else if (full_chunk) scan_oct<CB, NT, NT, false>(bt, pid, stage, c, out, rpp, tacc);
+  else if (whole) scan_oct<CB, NT, 1, true>(bt, pid, stage, c, out, rpp, tacc);
+  else scan_oct<CB, NT, 1, false>(bt, pid, stage, c, out, rpp, tacc);
+}
+
+// The warp's share of tile `tile` (tacc: the lane's row gl, per pair column)
+// to the minimum over the eight rows (exchanges xor 4, 8, 16), merged into
+// each pair's tile_min on the float's bits (the plan set +inf): a sum >= 0
+// (Quick ADC's tables) by a signed atomicMin, as non-negative floats order
+// as their bits below every negative one's; a negative sum by an unsigned
+// atomicMax, as negative floats order as their bits reversed, above every
+// non-negative one's. tacc is reset.
+template <int NT>
+__device__ __forceinline__ void merge_tiles(uint32_t (&tacc)[NT], const int (&pid)[NT][2],
+                                            int tile, const GroupedArgs& p) {
+  const int lane = threadIdx.x & 31;
+  const int ntiles = p.rpp / kTileRows;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t f = tacc[j];
+    f = __vmins2(f, __shfl_xor_sync(0xFFFFFFFFu, f, 4));
+    f = __vmins2(f, __shfl_xor_sync(0xFFFFFFFFu, f, 8));
+    f = __vmins2(f, __shfl_xor_sync(0xFFFFFFFFu, f, 16));
+    tacc[j] = kNonePair;
+    if (lane >= 4) continue;  // lanes t = 0..3 hold columns 2t, 2t + 1
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int pr = pid[j][e];
+      const int m = e ? static_cast<int>(f) >> 16 : static_cast<int>(static_cast<int16_t>(f));
+      if (pr < 0 || m == kNone16) continue;
+      int32_t* at = p.tile_min + static_cast<size_t>(pr) * ntiles + tile;
+      const int bits = __float_as_int(static_cast<float>(m));
+      if (m >= 0) atomicMin(at, bits);
+      else atomicMax(reinterpret_cast<unsigned int*>(at), static_cast<unsigned int>(bits));
+    }
+  }
 }
 
 // n int32 entries of kScanTrim from dst on, by one warp: 16-byte stores
@@ -519,8 +579,12 @@ __device__ __forceinline__ void dead_rows(DeadRows& d, int budget, int warps, co
 // its own ring kGroupedStages - 1 octs ahead (cp.async, across groups), the
 // tables of a group's first NT tiles held in registers while the group lasts
 // (more tiles: reloaded an oct), and writes its sentinel rows (DeadRows)
-// kDeadSlice entries after each oct, the rest at the end.
-template <int CB, int NT>
+// kDeadSlice entries after each oct, the rest at the end. kTiles (tile_min
+// set) merges a tile where the walk leaves it (a group of one chunk), or
+// each oct's (more chunks: the pairs change within the oct). A constant: the
+// merges' code alone, never run, cost the scan 4% (H100 80GB HBM3, Deep100M's
+// geometry), so a call without tile_min runs the instantiation without it.
+template <int CB, int NT, bool kTiles>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 grouped_scan_mma_kernel(const GroupedArgs p) {
   __shared__ GroupedRing rings[kMmaWarps];
@@ -560,6 +624,9 @@ grouped_scan_mma_kernel(const GroupedArgs p) {
 
   uint32_t bt[NT][CB][2];
   int pid[NT][2];
+  uint32_t tacc[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) tacc[j] = kNonePair;
   int tiles = 0, chunks = 0, held = -1;
   for (int step = 0; scanning; ++step) {
     if (cc.g != held) {
@@ -575,8 +642,11 @@ grouped_scan_mma_kernel(const GroupedArgs p) {
     const uint4* stage = ring[step % kGroupedStages];
     for (int ch = 0; ch < chunks; ++ch) {
       if (chunks > 1) load_tiles<CB, NT>(bt, pid, p, cc, ch);
-      scan_chunk<CB, NT>(bt, pid, tiles - ch * NT >= NT, stage, cc, p.out, p.rpp);
+      scan_chunk<CB, NT>(bt, pid, tiles - ch * NT >= NT, stage, cc, p.out, p.rpp, tacc);
+      if (kTiles && chunks > 1) merge_tiles<NT>(tacc, pid, cc.o / kTileOcts, p);
     }
+    if (kTiles && chunks == 1 && (cc.o % kTileOcts == kTileOcts - 1 || cc.o + 1 == cc.oend))
+      merge_tiles<NT>(tacc, pid, cc.o / kTileOcts, p);
     scanning = next_oct<CB, NT>(cc, end, p);
     if (dead.g < p.gcap) dead_rows<CB>(dead, kDeadSlice, warps, p);
   }
@@ -584,11 +654,10 @@ grouped_scan_mma_kernel(const GroupedArgs p) {
   dead_rows<CB>(dead, INT_MAX, warps, p);
 }
 
-template <int CB, int NT>
-cudaError_t launch_grouped(const GroupedArgs& args, const void* slot_pair, void* live_pairs,
-                           void* live, void* base, cudaStream_t stream) {
-  static_assert(NT == 1 || NT == 2, "scan_oct takes a chunk of 1 or NT tiles");
-  auto kernel = grouped_scan_mma_kernel<CB, NT>;
+// The scan kernel, one wave of its resident blocks.
+template <int CB, int NT, bool kTiles>
+cudaError_t launch_scan(const GroupedArgs& args, cudaStream_t stream) {
+  auto kernel = grouped_scan_mma_kernel<CB, NT, kTiles>;
   static int resident = 0;  // asked once for each instantiation
   if (resident == 0) {
     int blocks = 1;
@@ -596,19 +665,27 @@ cudaError_t launch_grouped(const GroupedArgs& args, const void* slot_pair, void*
     if (err != cudaSuccess) return err;
     resident = blocks;
   }
+  kernel<<<resident, kMmaThreads, 0, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <int CB, int NT>
+cudaError_t launch_grouped(const GroupedArgs& args, const void* slot_pair, void* live_pairs,
+                           void* live, void* base, cudaStream_t stream) {
+  static_assert(NT == 1 || NT == 2, "scan_oct takes a chunk of 1 or NT tiles");
   grouped_scan_mma_kernel_plan<CB, NT>
       <<<(args.gcap + kMmaWarps - 1) / kMmaWarps, kMmaThreads, 0, stream>>>(
           static_cast<const int32_t*>(slot_pair), args.group_sizes,
           static_cast<int32_t*>(live_pairs), static_cast<int32_t*>(live),
-          static_cast<long long*>(base), args.gcap, args.group_size, args.rpp);
+          static_cast<long long*>(base), args.tile_min, args.gcap, args.group_size, args.rpp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   grouped_scan_mma_kernel_prefix<<<1, kPrefixThreads, 0, stream>>>(static_cast<long long*>(base),
                                                                    args.gcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<resident, kMmaThreads, 0, stream>>>(args);
-  return cudaGetLastError();
+  return args.tile_min ? launch_scan<CB, NT, true>(args, stream)
+                       : launch_scan<CB, NT, false>(args, stream);
 }
 
 // The fewest m-tiles a warp (1, 2 or at most `most`) that cover q_count queries.
@@ -645,23 +722,26 @@ extern "C" int qadc_flat_scan_mma(const void* codes, const void* tables, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// int8 tables, int32 out (QA, rpp); live_pairs (gcap, G) int32, live (gcap,)
+// int8 tables, int32 out (QA, rpp); tile_min (QA, rpp / 32) float32 or null
+// (rpp a multiple of 32 with it); live_pairs (gcap, G) int32, live (gcap,)
 // int32 and base (gcap + 2,) int64 are the plan's scratch (base[gcap + 1]:
 // the real rows walked); tiles: the N tiles of 8 pairs a warp holds in
 // registers (1, or 2 at cb 8).
 extern "C" int qadc_grouped_scan_mma(const void* codes, const void* tables,
                                      const void* group_part, const void* slot_pair,
-                                     const void* group_sizes, void* out, void* live_pairs,
-                                     void* live, void* base, int gcap, int group_size, int rpp,
-                                     int cb, int tiles, void* stream) {
+                                     const void* group_sizes, void* out, void* tile_min,
+                                     void* live_pairs, void* live, void* base, int gcap,
+                                     int group_size, int rpp, int cb, int tiles, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (group_size < 1 || gcap < 1 || rpp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (group_size < 1 || gcap < 1 || rpp < 1 || (tile_min && rpp % kTileRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   const GroupedArgs args{static_cast<const uint8_t*>(codes), static_cast<const int8_t*>(tables),
                          static_cast<const int32_t*>(group_part),
                          static_cast<const int32_t*>(group_sizes),
                          static_cast<const int32_t*>(live_pairs),
                          static_cast<const int32_t*>(live), static_cast<const long long*>(base),
-                         static_cast<int32_t*>(out), rpp, group_size, gcap};
+                         static_cast<int32_t*>(out), static_cast<int32_t*>(tile_min), rpp,
+                         group_size, gcap};
   if (cb == 8 && tiles == 1) return launch_grouped<8, 1>(args, slot_pair, live_pairs, live, base, s);
   if (cb == 8 && tiles == 2) return launch_grouped<8, 2>(args, slot_pair, live_pairs, live, base, s);
   if (cb == 16 && tiles == 1)

@@ -49,6 +49,7 @@ from qadc_tpu_torch.kernels.lut_scan import (
     MASK_BIG,
     SCAN8_SQ_COUNTS,
     TILE,
+    TRIM_SENTINEL,
     Kernels,
     scan8_windows,
 )
@@ -56,7 +57,7 @@ from qadc_tpu_torch.ops.kmeans import balance_centroids, kmeans
 from qadc_tpu_torch.ops.knn import exact_knn
 from qadc_tpu_torch.ops.quantization import int8_tables, keep_prefix_bound
 from qadc_tpu_torch.ops.tables import adc_tables
-from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, topk_smallest
+from qadc_tpu_torch.ops.topk import exact_tile_screen, merge_topk, tiles_shrink, topk_smallest
 from qadc_tpu_torch.quantizers.pq import ProductQuantizer, decode_rows
 
 
@@ -404,6 +405,16 @@ def _search_qadc_direct_impl(index: IVFIndex, queries, r: int, ma: int,
             torch.where(dead, -1, fl))
 
 
+def _screened(x: torch.Tensor, saturate: bool) -> torch.Tensor:
+    """M1's int32 window minima (or its float tile minima) as the screen
+    reads them: float32, +inf at or past TRIM_SENTINEL (a window with no
+    real code: real sums are at most 32 * 127), clamped at 127 with
+    saturate (entries are >= 0, so the window min of saturating sums is
+    min(., 127), and min(clamp(x)) == clamp(min(x)))."""
+    v = torch.clamp(x, max=127) if saturate else x
+    return torch.where(x < TRIM_SENTINEL, v.to(torch.float32), torch.inf)
+
+
 def _window_valid_mask(sz: torch.Tensor, c: int, cpr: int) -> torch.Tensor:
     """(QA, C) bool: window (storage row) i holds a real code, i*cpr < size."""
     rows = torch.arange(c, dtype=torch.int32, device=sz.device)
@@ -426,10 +437,13 @@ def _route(index: IVFIndex, parts: torch.Tensor, group_size: int):
     return out
 
 
-def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int):
+def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int,
+            mins=None, cast=None):
     """Exact screen of each query's ma*C windows down to wq.
 
     cv: (QA, C) window minima (inf = dead); parts: (Q, ma); sz: (QA,) sizes.
+    mins, cast: exact_tile_screen's, with mins (QA, C // TILE) (cv may then
+    be M1's int32 rows, `cast` giving the values screened).
     Returns (screen_v, sel_pair, sel_part, sel_wi, sel_sz), each (Q, wq):
     the screened minima and each selected window's flat pair id (q*ma + a),
     partition, window id and partition size.
@@ -437,7 +451,9 @@ def _screen(cv: torch.Tensor, parts: torch.Tensor, sz: torch.Tensor, wq: int):
     q, ma = parts.shape
     c = cv.shape[1]
     with span("screen"):
-        screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq)
+        if mins is not None:
+            mins = mins.reshape(q, ma * c // TILE)
+        screen_v, selq = exact_tile_screen(cv.reshape(q, ma * c), wq, mins=mins, cast=cast)
         selq = selq.long()
         sel_ai = selq // c
         sel_pair = torch.arange(q, device=cv.device)[:, None] * ma + sel_ai
@@ -460,21 +476,25 @@ def _search_qadc_grouped_impl(
     qa = q * ma
     c = index.codes.shape[1]                     # windows per partition = rows
 
+    # Exact screen of the query's ma*C windows: with wq >= r windows by true
+    # window minimum, every top-r code's window is provably kept. Where the
+    # screen tiles the row, M1 writes the tile minima beside the rows, and
+    # the screen reads the int32 rows at the winning tiles only.
+    wq = min(screen_windows or r, ma * c)
+    tiled = c % TILE == 0 and tiles_shrink(ma * c, wq, TILE)
     routed, pairs, group_sizes = _route(index, parts, group_size)
+    mins = cast = None
     with span("scan"):
         vals = kernels.grouped_scan(index.codes, qtables.reshape(qa, m, 16), routed.group_part,
-                                    pairs, group_sizes)          # (QA, C) int32
-        cv = vals.to(torch.float32)
-        if saturate:
-            # Entries are >= 0, so the window min of saturating sums == min(., 127).
-            cv = torch.clamp(cv, max=127.0)
+                                    pairs, group_sizes, tiled)   # (QA, C) int32 [, tiles]
         sz = index.part_sizes[parts.reshape(qa).long()]
-        cv = torch.where(_window_valid_mask(sz, c, index.cpr), cv, torch.inf)
-
-    # Exact screen of the query's ma*C windows: with wq >= r windows by true
-    # window minimum, every top-r code's window is provably kept.
-    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(
-        cv, parts, sz, min(screen_windows or r, ma * c))
+        if tiled:
+            vals, mins = vals
+            mins = _screened(mins, saturate) if saturate else mins
+            cast = functools.partial(_screened, saturate=saturate)
+        else:
+            vals = _screened(vals, saturate)
+    screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(vals, parts, sz, wq, mins, cast)
     tw_src = tables if rerank else qtables.to(torch.float32)
     return window_rerank(
         index.codes, index.labels, tw_src, screen_v, sel_part, sel_pair, sel_wi, sel_sz,

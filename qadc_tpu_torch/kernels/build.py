@@ -53,9 +53,9 @@ SIGNATURES = {
     # codes, tables, out, rows_out (or null), r_count, q_count, n, cb, stream
     "qadc_flat_scan_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qadc_flat_scan_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _P),  # as qadc_flat_scan_mma
-    # codes, tables, group_part, slot_pair, group_sizes, out, live_pairs, live,
-    # base, gcap, group_size, rpp, cb, tiles, stream
-    "qadc_grouped_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, tables, group_part, slot_pair, group_sizes, out, tile_min (or null),
+    # live_pairs, live, base, gcap, group_size, rpp, cb, tiles, stream
+    "qadc_grouped_scan_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, r_count, q_count, n, mode, mt, stream
     "qadc_scan_lab": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, tables, out, r_count, q_count, n, mode, stream

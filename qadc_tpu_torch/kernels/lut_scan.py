@@ -71,9 +71,11 @@ from qadc_tpu_torch.ops.topk import exact_tile_screen
 # the direct path turns it back into +inf / label -1 after the final cut.
 MASK_BIG = 3.0e38
 # Written by grouped_scan for rows it skips (lut_scan.py:_TRIM_SENTINEL_I32);
-# the caller's size mask removes those windows.
+# the callers read those windows as +inf (above every real sum) or mask them
+# by the partitions' sizes.
 TRIM_SENTINEL = 1 << 30
-# Width of the tiles whose minima direct_scan emits for exact_tile_screen.
+# Width of the tiles whose minima direct_scan and grouped_scan (tile_minima)
+# emit for exact_tile_screen.
 TILE = 32
 # Sub-quantizer counts grouped_scan8 takes (8-bit codes of m bytes).
 SCAN8_SQ_COUNTS = (4, 8, 16)
@@ -233,7 +235,7 @@ def _live_slots(slot_pair, group_part, group_sizes):
     return flat[live].long(), group_part[grp].long(), group_sizes[grp]
 
 
-def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
+def grouped_scan(codes, tables, group_part, slot_pair, group_sizes, tile_minima: bool = False):
     """Grouped 4-bit ADC scan to per-(pair, row) window minima.
 
     Args:
@@ -243,13 +245,18 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
       group_part: (gcap,) int32 partition scanned by each group.
       slot_pair: (gcap, G) int32 pair id in each slot, -1 when empty.
       group_sizes: (gcap,) int32 real code count of each group's partition.
+      tile_minima: int8 tables only, rpp a multiple of TILE: also return the
+        rows' minima over each tile of TILE rows, for exact_tile_screen.
 
     Returns:
       (QA, rpp) int32 (int8 tables) or float32: out[p, i] = min over the
       real codes of row i of pair p's partition of sum_m tables[p, m,
       nibble_m], summed over b = 0..cb-1, low nibble then high (no 127
       saturation); TRIM_SENTINEL (int32) or +inf (float32) for rows at or
-      past ceil(size / cpr).
+      past ceil(size / cpr). With tile_minima, (out, tiles): tiles (QA,
+      rpp // TILE) float32, tiles[p, t] = min of out[p, TILE*t:TILE*(t+1)]
+      over its rows below TRIM_SENTINEL as float, +inf where none is (M1
+      writes them beside the rows, from the minima it holds).
 
     With int8 tables, in a recording, it counts `scan.rows`: the real
     storage rows the scan walks (grouped_scan_rows summed; on a card the
@@ -262,15 +269,18 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
     qa, m, k = tables.shape
     if k != 16 or m not in (16, 32):
         raise ValueError(f"need (QA, 16|32, 16) tables, got {tuple(tables.shape)}")
+    rpp = codes.shape[1]
+    if tile_minima and (f32 or rpp % TILE):
+        raise ValueError(f"tile minima need int8 tables and rpp % {TILE} == 0, "
+                         f"got {tables.dtype}, rpp={rpp}")
     if dev.type == "cpu":
         if not f32 and recording_open():
-            count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, codes.shape[1],
-                                                 256 // m).sum())
-        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes)
+            count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, rpp, 256 // m).sum())
+        return grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes, tile_minima)
     _require_cuda(dev, codes, tables)
     gcap, g = slot_pair.shape
-    rpp = codes.shape[1]
     out = torch.empty((qa, rpp), dtype=tables.dtype if f32 else torch.int32, device=dev)
+    tiles = torch.empty((qa, rpp // TILE), dtype=torch.float32, device=dev) if tile_minima else None
     if qa and rpp and gcap:
         ptrs = [t.data_ptr() for t in (codes, tables, group_part, slot_pair, group_sizes, out)]
         if f32:
@@ -281,11 +291,12 @@ def grouped_scan(codes, tables, group_part, slot_pair, group_sizes):
             plan = (torch.empty((gcap, g), dtype=torch.int32, device=dev),
                     torch.empty((gcap,), dtype=torch.int32, device=dev),
                     torch.empty((gcap + 2,), dtype=torch.int64, device=dev))
-            _launch("qadc_grouped_scan_mma", dev, *ptrs, *(t.data_ptr() for t in plan),
-                    gcap, g, rpp, m // 2, grouped_mma_tiles(m // 2, qa, codes.shape[0]))
+            _launch("qadc_grouped_scan_mma", dev, *ptrs, tiles.data_ptr() if tile_minima else None,
+                    *(t.data_ptr() for t in plan), gcap, g, rpp, m // 2,
+                    grouped_mma_tiles(m // 2, qa, codes.shape[0]))
             count("scan.rows", plan[2][gcap + 1])
         launches["grouped_scan_f32" if f32 else "grouped_scan"] += 1
-    return out
+    return (out, tiles) if tile_minima else out
 
 
 # M1's work split with int8 tables (csrc/scan_mma.cu): a group's cost an oct
@@ -357,7 +368,8 @@ def grouped_scan_mma_walk(slot_pair, group_sizes, rpp: int, cb: int, held: int, 
     return walks, dead
 
 
-def grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes):
+def grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes,
+                       tile_minima: bool = False):
     """Plain PyTorch version of grouped_scan (same arguments and result)."""
     _, rpp, _ = codes.shape
     qa, m, _ = tables.shape
@@ -383,7 +395,10 @@ def grouped_scan_plain(codes, tables, group_part, slot_pair, group_sizes):
     mins = torch.where(row[None, :] * cpr < size[:, None], mins, trim)
     out = torch.full((qa, rpp), trim, dtype=acc_dtype, device=dev)
     out[pair] = mins
-    return out
+    if not tile_minima:
+        return out
+    real = torch.where(out < TRIM_SENTINEL, out.to(torch.float32), torch.inf)
+    return out, real.reshape(qa, rpp // TILE, TILE).amin(dim=-1)
 
 
 # ---------------------------------------------------------------- 5 + 6

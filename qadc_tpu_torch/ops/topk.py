@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from qadc_tpu_torch.eval.trace import count
+
 # Width of the chunks the sort cascade of exact_screen_smallest sorts whole
 # (the reference's SORT_TOPK_MAX_C; it also bounds the cascade's recursion).
 SORT_TOPK_MAX_C = 1024
@@ -85,7 +87,13 @@ def exact_screen_smallest(vals: torch.Tensor, k: int, idx=None):
     return v[:, :k].reshape(*lead, k), idx[:, :k].reshape(*lead, k)
 
 
-def exact_tile_screen(vals: torch.Tensor, k: int, tile: int = 32, mins=None):
+def tiles_shrink(w: int, k: int, tile: int = 32) -> bool:
+    """Whether exact_tile_screen tiles a row of w at k when it reduces the
+    tile minima itself (below, it sorts the row whole)."""
+    return w > max(4 * tile, k * 2 * tile, SORT_TOPK_MAX_C)
+
+
+def exact_tile_screen(vals: torch.Tensor, k: int, tile: int = 32, mins=None, cast=None):
     """Exact k-smallest + indices along the last axis, via tile minima.
 
     Screen the row's tile minima exactly, then screen the members of the
@@ -94,22 +102,27 @@ def exact_tile_screen(vals: torch.Tensor, k: int, tile: int = 32, mins=None):
     tile cut resolve by (tile, position) order.
 
     mins: optional (..., w // tile) precomputed tile minima (the direct
-    scan kernel emits them); must equal the min over each contiguous tile.
+    scan kernel and M1 emit them); must equal the min over each contiguous
+    tile of the values as screened. In a recording their count is counted
+    as `screen.scan_tiles`.
+    cast: with mins, the map from vals' entries to the float32 values
+    screened (default: a cast); vals is then read at the k winning tiles
+    only, in its own dtype.
 
     Returns (vals (..., k) ascending, idx (..., k) int32).
     """
     w = vals.shape[-1]
-    if w <= max(4 * tile, k * 2 * tile, SORT_TOPK_MAX_C) and mins is None:
-        return exact_screen_smallest(vals, k)  # tiling would not shrink
+    if mins is None and not tiles_shrink(w, k, tile):
+        return exact_screen_smallest(vals, k)
     lead = vals.shape[:-1]
-    v = vals.to(torch.float32).reshape(-1, w)
+    v = vals.reshape(-1, w)
     pad = (-w) % tile
-    if pad:
-        if mins is not None:
-            raise ValueError(
-                f"precomputed mins require tile | width, got width={w} tile={tile}"
-            )
-        v = F.pad(v, (0, pad), value=torch.inf)
+    if mins is None:
+        v = v.to(torch.float32)
+        if pad:
+            v = F.pad(v, (0, pad), value=torch.inf)
+    elif pad:
+        raise ValueError(f"precomputed mins require tile | width, got width={w} tile={tile}")
     q, wp = v.shape
     ntiles = wp // tile
     dm = v.reshape(q, ntiles, tile)
@@ -117,6 +130,7 @@ def exact_tile_screen(vals: torch.Tensor, k: int, tile: int = 32, mins=None):
         if mins.shape[-1] != ntiles:
             raise ValueError(f"mins minor dim {mins.shape[-1]} != width//tile {ntiles}")
         mins = mins.to(torch.float32).reshape(q, ntiles)
+        count("screen.scan_tiles", q * ntiles)
     else:
         mins = torch.amin(dm, dim=-1)
     kt = min(k, ntiles)
@@ -124,6 +138,7 @@ def exact_tile_screen(vals: torch.Tensor, k: int, tile: int = 32, mins=None):
     _, ti = inner(mins, kt)                                     # exact tile cut
     ti = ti.to(torch.int64)
     cand = torch.gather(dm, 1, ti[..., None].expand(q, kt, tile))  # (Q, kt, tile)
+    cand = cast(cand) if cast is not None else cand.to(torch.float32)
     cidx = ti[..., None] * tile + torch.arange(tile, device=v.device)
     sv, idx = exact_screen_smallest(
         cand.reshape(q, kt * tile), min(k, kt * tile),

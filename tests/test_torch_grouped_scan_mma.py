@@ -14,7 +14,15 @@ On the CPU (no JAX: the file also runs on the card's machine):
       tables of 8 pairs byte-transposed to match, the m16n8k32 fragment maps
       of the PTX ISA, the padded-code masks, the 16-bit packed minima and the
       three exchanges of the row reduction) reproduces grouped_scan_plain at
-      CB 8 and 16, one and two N tiles, a partial row.
+      CB 8 and 16, one and two N tiles, a partial row;
+  (d) the tile minima (tile_minima=True): grouped_scan_plain's are the
+      masked float rows' amin; tile_merges, the kernel's merges from its
+      walk, carries each real oct once a chunk,
+      reaches every real tile of a live pair, cuts tiles between warps
+      where a share boundary falls inside one, and its minimum over the
+      merges (from the plan's +inf) is grouped_scan_plain's; the lane
+      emulation's per-lane fold of a tile's octs and the three exchanges of
+      merge_tiles give the same minima.
 On the card (skipped without CUDA; run with --noconftest): the whole (QA,
 rpp) output of lut_scan.grouped_scan equals grouped_scan_plain bit for bit,
 sentinel rows included, in a sparse geometry (>= 1,024 partitions, part_pad
@@ -22,8 +30,11 @@ sentinel rows included, in a sparse geometry (>= 1,024 partitions, part_pad
 dense one (12-128 live pairs a group, one of exactly group_size), with groups
 past n_groups, at CB 8 and 16; and a replay of a CUDA graph of the call
 equals the eager call; the kernels' own `scan.rows` count equals
-grouped_scan_rows'. Tolerance: exact everywhere (int32 sums of int8
-entries).
+grouped_scan_rows'; with tile_minima, the rows unchanged and the tile minima
+equal grouped_scan_plain's bit for bit, eager and under graph replay, in
+the sparse geometry (an empty partition: all +inf; tiles with real and
+sentinel rows; tiles cut by the warps' shares) and the dense one at 64 rows.
+Tolerance: exact everywhere (int32 sums of int8 entries).
 """
 
 import numpy as np
@@ -72,12 +83,13 @@ def sparse_case(m: int, seed: int):
     return parts, rpp, sizes, counts, 128
 
 
-def dense_case(m: int, seed: int):
-    """16 partitions of 40 rows, 12-200 pairs a list (one exactly
-    group_size, one past it): SIFT's shape, scaled down."""
+def dense_case(m: int, seed: int, rpp: int = 40):
+    """16 partitions of 40 rows (64: a multiple of TILE, as tile minima
+    need), 12-200 pairs a list (one exactly group_size, one past it):
+    SIFT's shape, scaled down."""
     cpr = 256 // m
     rng = np.random.default_rng(seed)
-    parts, rpp = 16, 40
+    parts = 16
     sizes = rng.integers(rpp * cpr // 3, rpp * cpr + 1, parts)
     sizes[:3] = [0, rpp * cpr, rpp * cpr - 3]
     counts = rng.integers(12, 65, parts)
@@ -245,13 +257,15 @@ def _reduce_rows(x):
     return [r[0] for r in x]
 
 
-def emulate_oct(codes_p, tables, pairs, size, oct_, cb, tiles):
+def emulate_oct(codes_p, tables, pairs, size, oct_, cb, tiles, lanes=None):
     """One warp's oct `oct_` of one group's partition codes_p (rpp, 128)
     against its live pairs (at most 8 * tiles), as scan_mma.cu's load_tiles
     and scan_oct run it. Returns {(pair, row): value} for the oct's rows
-    below rpp. k-step 2q + h of a code covers its nibbles N_i (i = 0..3: the
-    low and high nibbles of bytes 2q, 2q + 1) at the values 8h + t (k = 4t +
-    i) and 8h + 4 + t (k = 16 + 4t + i)."""
+    below rpp; `lanes`, a list, gets each N tile's 32 reduced words (row gl
+    in lane gl * 4 + t), what scan_oct folds into its tile minima. k-step
+    2q + h of a code covers its nibbles N_i (i = 0..3: the low and high
+    nibbles of bytes 2q, 2q + 1) at the values 8h + t (k = 4t + i) and 8h +
+    4 + t (k = 16 + 4t + i)."""
     rpp = codes_p.shape[0]
     cpr, rows_per_tile = 128 // cb, cb // 8
     rows = min(rpp, -(-size // cpr)) if size > 0 else 0
@@ -315,6 +329,8 @@ def emulate_oct(codes_p, tables, pairs, size, oct_, cb, tiles):
     out = {}
     for j in range(tiles):
         v = _reduce_rows(x[j])
+        if lanes is not None:
+            lanes.append(v)
         for lane in range(32):
             gl, t = lane >> 2, lane & 3
             row = oct_ * OCT + gl
@@ -354,6 +370,57 @@ def test_warp_emulation_reproduces_grouped_scan_plain(m, live, size):
             assert v == want[p, row], (p, row)
 
 
+def _merge_tile(words):
+    """scan_mma.cu's merge_tiles: the lanes' folded row minima to the
+    minimum over the eight rows gl of each column pair (exchanges xor 4, 8,
+    16), in every lane."""
+    x = list(words)
+    for xor in (4, 8, 16):
+        x = [_vmins2(x[lane], x[lane ^ xor]) for lane in range(32)]
+    return x
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("live,size", [(3, 0), (3, 37), (8, 150), (11, -5)])   # -5: 5 short
+def test_warp_emulation_folds_the_tile_minima(m, live, size):
+    """A warp's fold of each oct's reduced words into a tile (one 16-bit
+    min a lane an oct) and merge_tiles' exchanges give, in lanes t = 0..3,
+    columns 2t and 2t + 1's tile minima: grouped_scan_plain's, +inf where
+    no real row is (the merge skips them; the plan's +inf stays)."""
+    cb, cpr = m // 2, 256 // m
+    rng = np.random.default_rng(m + live + 1)
+    rpp = 2 * lut_scan.TILE
+    size = rpp * cpr + size if size < 0 else size
+    codes = torch.from_numpy(rng.integers(0, 256, (1, rpp, 128), dtype=np.uint8))
+    tables = torch.from_numpy(rng.integers(-128, 128, (live, m, 16)).astype(np.int8))
+    slot_pair = torch.full((1, 16), -1, dtype=torch.int32)
+    slot_pair[0, :live] = torch.from_numpy(rng.permutation(live).astype(np.int32))
+    args = [codes, tables, torch.zeros(1, dtype=torch.int32), slot_pair,
+            torch.tensor([size], dtype=torch.int32)]
+    _, want = lut_scan.grouped_scan_plain(*args, True)
+    packed, _, _ = lut_scan.grouped_scan_mma_plan(slot_pair, args[4], rpp, cb, 1)
+    pairs, ntiles = packed[0, :live].tolist(), -(-live // 8)
+    octs = -(-min(rpp, -(-size // cpr)) // OCT) if size else 0
+    per_tile = lut_scan.TILE // OCT
+    got = torch.full_like(want, float("inf"))
+    for t in range(-(-octs // per_tile)):
+        acc = [[_pack2(NONE16, NONE16)] * 32 for _ in range(ntiles)]
+        for o in range(t * per_tile, min(octs, (t + 1) * per_tile)):
+            words = []
+            emulate_oct(codes[0], tables, pairs, size, o, cb, ntiles, lanes=words)
+            acc = [[_vmins2(a, w) for a, w in zip(aj, wj)] for aj, wj in zip(acc, words)]
+        for j in range(ntiles):
+            folded = _merge_tile(acc[j])
+            for lane in range(4):
+                for e in range(2):
+                    s = 8 * j + 2 * lane + e
+                    h = (folded[lane] >> (16 * e)) & 0xFFFF
+                    h = h - 0x10000 if h & 0x8000 else h
+                    if s < live and h != NONE16:
+                        got[pairs[s], t] = float(h)
+    assert torch.equal(got, want)
+
+
 def test_reduce_rows_leaves_row_gl_in_every_lane():
     rng = np.random.default_rng(3)
     lanes = rng.integers(-4096, 4065, (32, OCT, 2))
@@ -363,6 +430,104 @@ def test_reduce_rows_leaves_row_gl_in_every_lane():
         gl, t = lane >> 2, lane & 3
         col = lanes[[4 * g + t for g in range(8)], gl]             # row gl over the column's lanes
         assert got[lane] == _pack2(int(col[:, 0].min()), int(col[:, 1].min()))
+
+
+# ---------------------------------------------------------------- (d) the tile minima
+
+
+def tile_merges(walks, slot_pair, held: int):
+    """The tile merges of M1's scan with tile_minima (scan_mma.cu's
+    merge_tiles calls), from its walks (lut_scan.grouped_scan_mma_walk): per
+    warp, in order, (group, tile, chunk, octs), the octs whose row minima one
+    merge (an atomic minimum a pair) carries. A group of one chunk of `held`
+    N tiles merges where the warp's walk leaves a tile: at its fourth oct,
+    or where the walk leaves the group (its last real oct, the end of the
+    warp's share); a group of more chunks merges each oct's, a chunk at a
+    time."""
+    live = (slot_pair >= 0).sum(dim=1).tolist()
+    per_tile = lut_scan.TILE // OCT
+    merges = []
+    for walk in walks:
+        mine, octs = [], []
+        for i, (grp, o) in enumerate(walk):
+            chunks = -(-live[grp] // (8 * held))
+            if chunks > 1:
+                mine += [(grp, o // per_tile, ch, [o]) for ch in range(chunks)]
+                continue
+            octs.append(o)
+            if o % per_tile == per_tile - 1 or walk[i + 1:i + 2] != [(grp, o + 1)]:
+                mine.append((grp, o // per_tile, 0, octs))
+                octs = []
+        merges.append(mine)
+    return merges
+
+
+def _masked(rows):
+    return torch.where(rows < lut_scan.TRIM_SENTINEL, rows.to(torch.float32), torch.inf)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_plain_tile_minima_are_the_masked_rows_amin(m):
+    args, _ = scan_inputs(sparse_case(m, 9), m, 9)
+    rows, tiles = lut_scan.grouped_scan_plain(*args, True)
+    assert torch.equal(rows, lut_scan.grouped_scan_plain(*args))
+    assert tiles.dtype == torch.float32 and tiles.shape == (rows.shape[0], rows.shape[1] // 32)
+    assert torch.equal(tiles, _masked(rows).reshape(rows.shape[0], -1, 32).amin(-1))
+    assert torch.isinf(tiles).any() and torch.isfinite(tiles).any()
+    got = lut_scan.grouped_scan(*args, True)                   # the wrapper: the plain version
+    assert torch.equal(got[0], rows) and torch.equal(got[1], tiles)
+
+
+def test_tile_minima_need_int8_tables_and_whole_tiles():
+    m = 16
+    args, _ = scan_inputs(dense_case(m, 4), m, 4)              # rpp 40
+    with pytest.raises(ValueError, match="tile minima"):
+        lut_scan.grouped_scan(*args, True)
+    args, _ = scan_inputs(dense_case(m, 4, rpp=64), m, 4)
+    args[1] = args[1].to(torch.float32)
+    with pytest.raises(ValueError, match="tile minima"):
+        lut_scan.grouped_scan(*args, True)
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("kind,warps", [("sparse", 264 * 8), ("sparse", 7), ("dense", 264 * 8),
+                                        ("dense", 3), ("dense", 1)])
+def test_tile_merges_cover_each_real_tile_and_give_its_minimum(m, kind, warps):
+    cb = m // 2
+    case = sparse_case(m, 6) if kind == "sparse" else dense_case(m, 6, rpp=64)
+    args, _ = scan_inputs(case, m, 6)
+    codes, tables, _, slot_pair, g_sz = args
+    rpp, per_tile = codes.shape[1], lut_scan.TILE // OCT
+    held = lut_scan.grouped_mma_tiles(cb, tables.shape[0], codes.shape[0])
+    walks, _ = lut_scan.grouped_scan_mma_walk(slot_pair, g_sz, rpp, cb, held, warps)
+    merges = tile_merges(walks, slot_pair, held)
+    packed, live, _ = lut_scan.grouped_scan_mma_plan(slot_pair, g_sz, rpp, cb, held)
+    chunk = 8 * held
+    chunks = [-(-int(n) // chunk) for n in live]
+    real, rows_of = _real_octs(slot_pair, g_sz, rpp, 128 // cb)
+    carried = [(g, ch, o) for mine in merges for g, t, ch, octs in mine for o in octs]
+    assert sorted(carried) == sorted((g, ch, o) for g, o in real for ch in range(chunks[g]))
+    assert all(o // per_tile == t for mine in merges for _, t, _, octs in mine for o in octs)
+    writers = {}
+    for w, mine in enumerate(merges):
+        for g, t, _, _ in mine:
+            writers.setdefault((g, t), set()).add(w)
+    assert set(writers) == {(g, o // per_tile) for g, o in real}   # every real tile, no other
+    rows, want = lut_scan.grouped_scan_plain(*args, True)
+    masked = _masked(rows)
+    got = torch.full_like(want, float("inf"))                  # the plan's fill: every pair is live
+    for mine in merges:
+        for g, t, ch, octs in mine:
+            pairs = packed[g, ch * chunk:(ch + 1) * chunk]
+            pairs = pairs[pairs >= 0].long()
+            cols = torch.tensor([o * OCT + i for o in octs for i in range(OCT)])
+            got[pairs, t] = torch.minimum(got[pairs, t], masked[pairs][:, cols].amin(-1))
+    assert torch.equal(got, want)
+    split = [k for k, ws in writers.items() if len(ws) > 1]
+    if warps > 100 or (kind == "sparse" and warps > 1):
+        assert split                                           # share boundaries cut tiles
+    if warps == 1:
+        assert not split
 
 
 # ---------------------------------------------------------------- on the card
@@ -419,3 +584,63 @@ def test_scan_rows_is_the_kernels_own_count(cuda, m):
     with recording() as rec:
         lut_scan.grouped_scan(*args)                           # the plain version counts too
     assert [(c.name, c.value) for c in rec.counts] == [("scan.rows", want)]
+
+
+def _card_warps(device) -> int:
+    """M1's scan warps on the card: one wave of two blocks of 8 warps an SM
+    (its launch bounds; the resident count the launcher asks is at most 2)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * 2 * 8
+
+
+@pytest.mark.parametrize("m", [16, 32])
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_grouped_scan_tile_minima_equal_plain(cuda, m, kind):
+    """With tile_minima the rows are grouped_scan_plain's, sentinel rows
+    included, and the tile minima its amin over the masked float rows bit
+    for bit: an empty partition all +inf, tiles holding real and sentinel
+    rows, tiles cut between warps by their shares of the cost prefix."""
+    seed = 80 + m
+    case = sparse_case(m, seed) if kind == "sparse" else dense_case(m, seed, rpp=64)
+    args, _ = scan_inputs(case, m, seed)
+    want_rows, want = lut_scan.grouped_scan_plain(*args, True)
+    rows, tiles = lut_scan.grouped_scan(*[a.to(cuda) for a in args], True)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), want_rows) and torch.equal(tiles.cpu(), want)
+    cb, rpp = m // 2, args[0].shape[1]
+    empty = torch.nonzero(args[4] == 0).flatten()
+    live_empty = args[3][empty][args[3][empty] >= 0].long()
+    assert torch.isinf(want[live_empty]).all()                 # an empty partition's pairs
+    if kind == "sparse":
+        assert live_empty.numel()
+        held = lut_scan.grouped_mma_tiles(cb, args[1].shape[0], args[0].shape[0])
+        for warps in (_card_warps(cuda), _card_warps(cuda) // 2):
+            walks, _ = lut_scan.grouped_scan_mma_walk(args[3], args[4], rpp, cb, held, warps)
+            merges = tile_merges(walks, args[3], held)
+            writers = {}
+            for w, mine in enumerate(merges):
+                for g, t, _, _ in mine:
+                    writers.setdefault((g, t), set()).add(w)
+            assert any(len(ws) > 1 for ws in writers.values())  # tiles cut by share boundaries
+
+
+@pytest.mark.parametrize("m", [16, 32])
+def test_grouped_scan_tile_minima_under_graph_replay(cuda, m):
+    """A graph of the call with tile_minima, captured on one batch and
+    replayed on another's inputs, gives the eager call's rows and tiles."""
+    case = sparse_case(m, 90)
+    args, _ = scan_inputs(case, m, 90)
+    other, _ = scan_inputs((case[0], case[1], case[2][::-1].copy(), case[3], case[4]), m, 91)
+    static = [a.to(cuda) for a in args]
+    lut_scan.grouped_scan(*static, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rows, tiles = lut_scan.grouped_scan(*static, True)
+    for s, o in zip(static, other):
+        s.copy_(o.to(cuda))
+    graph.replay()
+    eager = lut_scan.grouped_scan(*[o.to(cuda) for o in other], True)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, eager[0]) and torch.equal(tiles, eager[1])
+    want = lut_scan.grouped_scan_plain(*other, True)
+    assert torch.equal(eager[0].cpu(), want[0]) and torch.equal(eager[1].cpu(), want[1])
