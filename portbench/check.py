@@ -3,17 +3,23 @@
 Once the window has closed, a sample of the answers it returned (drawn
 from the seed) is judged against the plain reference (reference/search.py),
 which works each sampled query out again from the raw query and the trained
-quantizer state, and the build is judged on a sample of base vectors:
+quantizer state by the search the configuration names (`adc_type`: "qadc",
+Quick ADC of 4-bit codes, the default; "adc", conventional ADC of 8-bit
+codes over IVF, the port's grouped adc8 search), and the build is judged on
+a sample of base vectors:
 
   miss           the largest share, over the sampled answers, of r that
                  the answer gets wrong: codes it lacks that are nearer than
                  its farthest and that every valid search keeps, and codes
-                 it returns that no valid search can; read as Quick ADC (the
-                 exact screen's windows below its cut value are kept, the
-                 windows tied at the cut may go either way, which is the
-                 implementation's order) and as exact ADC over the probes
-                 (the program may serve a small batch by the exact path),
-                 the smaller of the two;
+                 it returns that no valid search can; read as the
+                 configuration's search (its exact screen's windows below
+                 the cut value are kept, the windows tied at the cut may go
+                 either way, which is the implementation's order: Quick
+                 ADC's int8 window minima screened to `screen_windows` * r,
+                 or 8-bit ADC's bfloat16 window minima screened to
+                 r + max(16, r // 8)) and as exact ADC over the probes (the
+                 program may serve a small batch by the exact path), the
+                 smaller of the two;
   dist_err       the largest gap, over every (label, distance) the sampled
                  answers return, between the distance returned and the
                  reference's float ADC distance of that label's code for
@@ -21,7 +27,8 @@ quantizer state, and the build is judged on a sample of base vectors:
                  label that is no probed code of the query reads inf;
   code_mismatch  the share of the sampled base vectors whose stored
                  partition or code differs from the reference's encoding
-                 under the trained quantizer;
+                 under the trained quantizer, the stored codes decoded by
+                 their bit width (4-bit nibbles or 8-bit bytes);
   train_excess   the training, judged by itself: how much worse the
                  program's trained quantizer reconstructs the sampled base
                  vectors than the reference's own (reference/train.py,
@@ -31,7 +38,9 @@ quantizer state, and the build is judged on a sample of base vectors:
 
 Each number is held to its limit from the configuration file's `limits`.
 The control (`control=True`) puts the reference itself, computed one
-precision lower (TF32 products, int4 tables), in the program's place.
+precision lower, in the program's place: TF32 products and int4 tables for
+Quick ADC; TF32 products and the rerank summed from the bfloat16 tables
+(the screen's) for 8-bit ADC.
 """
 
 from __future__ import annotations
@@ -117,23 +126,33 @@ def train_excess(dep, control: bool = False) -> float:
         return ref_train.distortion(have, dep.check_vectors) / want - 1.0
 
 
+def searched(state: reference.State, queries: torch.Tensor, cfg: dict,
+             low: bool = False) -> reference.Answers:
+    """The reference's answers by the configuration's search; low=True: the
+    control, one precision below what the configuration states."""
+    r, ma = cfg["r"], cfg.get("ma", 1)
+    with reference.precision(low=low):
+        if cfg.get("adc_type", "qadc") == "adc":
+            return reference.search_adc8(state, queries, r, ma,
+                                         rerank=torch.bfloat16 if low else torch.float32)
+        return reference.search(state, queries, r, ma, cfg["keep"], cfg["screen_windows"],
+                                levels=reference.INT4_LEVELS if low else reference.INT8_LEVELS)
+
+
 def judge(dep, got: Answered, control: bool = False) -> dict:
-    """The three numbers of a run (see the module's docstring). dep: the
+    """The four numbers of a run (see the module's docstring). dep: the
     deployment (deploy.Deployment) whose index answered."""
     cfg = dep.cfg
     state = dep.state()
     dev = state.codes.device
-    r, ma, keep, screen = cfg["r"], cfg.get("ma", 1), cfg["keep"], cfg["screen_windows"]
+    r = cfg["r"]
     uq, inv = np.unique(got.qids, return_inverse=True)
     inv_t = torch.as_tensor(inv, device=dev)
     queries = dep.pool[torch.as_tensor(uq, device=dev)]
-    with reference.precision():
-        ref = reference.search(state, queries, r, ma, keep, screen)
+    ref = searched(state, queries, cfg)
     if control:
-        with reference.precision(low=True):
-            low = reference.search(state, queries, r, ma, keep, screen,
-                                   levels=reference.INT4_LEVELS)
-        labels, dists = low.quick_labels[inv_t], low.quick_dists[inv_t]
+        low = searched(state, queries, cfg, low=True)
+        labels, dists = low.labels[inv_t], low.dists[inv_t]
     else:
         labels = torch.as_tensor(got.labels, device=dev).to(torch.int64)
         dists = torch.as_tensor(got.dists, device=dev).to(torch.float32)
@@ -149,7 +168,7 @@ def judge(dep, got: Answered, control: bool = False) -> dict:
     code_d = ref.code_dists[inv_t].reshape(len(inv), -1)                  # (S, ma * pad)
     code_c = ref.code_class[inv_t].reshape(len(inv), -1)
     want_d = torch.where(found, torch.gather(code_d, 1, flat_at), torch.inf)
-    scale = ref.quick_dists[inv_t][:, -1:].clamp(min=1e-30)
+    scale = ref.dists[inv_t][:, -1:].clamp(min=1e-30)
     err = torch.where(torch.isfinite(want_d), (dists - want_d).abs() / scale, torch.inf)
     miss = _misses(code_d, code_c, want_d, flat_at, found) / r
 
@@ -162,7 +181,7 @@ def judge(dep, got: Answered, control: bool = False) -> dict:
     else:
         loc = pos[dep.check_ids]
         stored = state.codes.reshape(-1, state.codes.shape[-1])[loc.clamp(min=0)]
-        have_code = torch.stack([reference.nibbles(stored, m) for m in range(state.sq_count)], -1)
+        have_code = reference.decode(stored, state.sq_count, state.k)
         have_part = torch.where(loc >= 0, loc // part_pad, -1)
     bad = (have_part != want_part) | (have_code != want_code).any(-1)
     return {"miss": float(miss.max()), "dist_err": float(err.max()),

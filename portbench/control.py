@@ -6,10 +6,13 @@
 For each of --seeds, one run of the cell as the benchmark makes it (a short
 window at the cell's own load) and the numbers of its sampled answers as
 the program returned them; with --control, the same answers judged again
-with the reference computed one precision lower (TF32 products, int4
-tables) put in the program's place. For each fault of --faults
-(faults.py) and each of --fault-seeds, one run with that fault planted in
-the program's training. One JSON line a run. Not part of a benchmark run.
+with the reference computed one precision lower put in the program's place
+(check.searched): for a Quick ADC configuration TF32 products and int4
+tables, for an 8-bit conventional ADC one (`adc_type` "adc") TF32 products
+and the rerank summed from the bfloat16 tables the screen sums. For each
+fault of --faults (faults.py) and each of --fault-seeds, one run with that
+fault planted in the program's training. One JSON line a run. Not part of
+a benchmark run. The cell is found in the repository's own BENCHMARK.json.
 """
 
 from __future__ import annotations

@@ -5,6 +5,11 @@ the host) only after the previous batch's results are on the host.
 
 Traffic keys: "batch" (queries a batch), "warm_batches" (searches of the
 first batch before the window).
+
+The engine runs the search the configuration names: `adc_type` "qadc"
+(Quick ADC, the default when the key is absent), with its `keep` and
+`rerank`, or "adc" (conventional ADC, e.g. of 8-bit codes), which reads
+neither; check.py judges the answers by the reference of the same search.
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ def prepare(ctx) -> None:
     from qadc_tpu_torch.engine import QueryEngine
 
     cfg, batch = ctx.cfg, ctx.traffic["batch"]
+    adc_type = cfg.get("adc_type", "qadc")
+    quick = dict(keep=cfg["keep"], rerank=cfg["rerank"]) if adc_type == "qadc" else {}
     ctx.state["engine"] = QueryEngine(
-        ctx.dep.index, r=cfg["r"], ma=cfg.get("ma", 1), keep=cfg["keep"], adc_type="qadc",
-        batch_size=batch, rerank=cfg["rerank"])
+        ctx.dep.index, r=cfg["r"], ma=cfg.get("ma", 1), adc_type=adc_type, batch_size=batch,
+        **quick)
     ctx.state["order"] = _order(ctx)
     ctx.state["next"] = 0
     first = ctx.dep.pool_np[ctx.state["order"][:batch]]
