@@ -813,19 +813,20 @@ def _search_adc8_grouped_impl(index: IVFIndex, queries, r: int, ma: int,
     sz = index.part_sizes[parts.reshape(qa).long()]
     wq = min(r + max(16, r // 8), ma * c)
     screen_v, sel_pair, sel_part, sel_wi, sel_sz = _screen(cv, parts, sz, wq)
-    # Window r*cs + c0 holds codes r*cpr + c0 + k*cs.
-    first = sel_wi // cs * cpr + sel_wi % cs
-    cand, labels, alive = _expand_windows(index, screen_v, sel_part, sel_sz, first, cs,
-                                          window)
-    idx8 = gather_codes_row128(index.codes.reshape(-1, 128), cand, m).long()
-    # Exact float32 rerank: one element gather per (candidate, sub-quantizer)
-    # from the per-pair tables, summed over b = 0..m-1.
-    base = sel_pair.repeat_interleave(window, dim=1) * m     # (Q, wq*window)
-    flat = tables.reshape(-1)
-    fd = torch.zeros(cand.shape, dtype=torch.float32, device=cand.device)
-    for b in range(m):
-        fd = fd + flat[(base + b) * 256 + idx8[..., b]]
-    return _rank_candidates(fd, labels, alive, r)
+    with span("rerank"):
+        # Window r*cs + c0 holds codes r*cpr + c0 + k*cs.
+        first = sel_wi // cs * cpr + sel_wi % cs
+        cand, labels, alive = _expand_windows(index, screen_v, sel_part, sel_sz, first, cs,
+                                              window)
+        idx8 = gather_codes_row128(index.codes.reshape(-1, 128), cand, m).long()
+        # Exact float32 rerank: one element gather per (candidate,
+        # sub-quantizer) from the per-pair tables, summed over b = 0..m-1.
+        base = sel_pair.repeat_interleave(window, dim=1) * m     # (Q, wq*window)
+        flat = tables.reshape(-1)
+        fd = torch.zeros(cand.shape, dtype=torch.float32, device=cand.device)
+        for b in range(m):
+            fd = fd + flat[(base + b) * 256 + idx8[..., b]]
+        return _rank_candidates(fd, labels, alive, r)
 
 
 # 16-bit grouped path: windows of ADC16_WINDOW consecutive codes (the

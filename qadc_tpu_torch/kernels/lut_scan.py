@@ -428,6 +428,14 @@ def grouped_scan8(codes, tables, group_part, slot_pair, group_sizes):
       float(tables[p, b, byte_b]), summed in float32 over b = 0..m-1, and
       the partition-local code index of the minimum (ties to the lower
       code); +inf and -1 for a window with no real code.
+
+    In a recording it counts `scan.rows`: the real storage rows of the
+    groups with a live slot (grouped_scan_rows summed, a device tensor on a
+    card), the rows whose codes the kernel loads, each counted once. It is
+    computed from the routing, not by the kernel, and is not a walk as M1's
+    is: the kernel loads a group's rows once for each window of 4 slots that
+    holds a live pair, and visits every 128-row tile up to rpp, storing +inf
+    minima for the rows past the real ones.
     """
     dev = codes.device
     _check_groups(codes, group_part, slot_pair, group_sizes)
@@ -436,6 +444,9 @@ def grouped_scan8(codes, tables, group_part, slot_pair, group_sizes):
     if k != 256 or m not in SCAN8_SQ_COUNTS:
         raise ValueError(f"need (QA, m, 256) tables with m in {SCAN8_SQ_COUNTS}, "
                          f"got {tuple(tables.shape)}")
+    if recording_open():
+        count("scan.rows", grouped_scan_rows(slot_pair, group_sizes, codes.shape[1],
+                                             128 // m).sum())
     if dev.type == "cpu":
         return grouped_scan8_plain(codes, tables, group_part, slot_pair, group_sizes)
     _require_cuda(dev, codes, tables)
